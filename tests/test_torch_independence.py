@@ -1,0 +1,96 @@
+"""presto_tpu_torch stands alone: no jax, no presto_tpu.
+
+The pytest process already has jax imported (tests/conftest.py), so the
+import-and-run check happens in a fresh interpreter whose import system
+refuses jax and presto_tpu.  An AST walk over the package (and the chip
+smoke script) pins that no module names either in an import.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "presto_tpu_torch")
+
+_BLOCKED = ("jax", "jaxlib", "presto_tpu")
+
+_CHILD = r"""
+import importlib.abc
+import sys
+
+BLOCKED = ("jax", "jaxlib", "presto_tpu")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import presto_tpu_torch  # noqa: E402
+from presto_tpu_torch.localrunner import LocalQueryRunner  # noqa: E402
+
+sql = '''
+select l_returnflag, l_linestatus, sum(l_quantity), avg(l_discount),
+       count(*)
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+'''
+rows = LocalQueryRunner.tpch(scale=0.01, device="cpu").execute(sql).rows
+assert len(rows) == 4, rows
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print("rows", len(rows))
+"""
+
+
+def test_import_and_q1_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "rows 4" in proc.stdout
+
+
+def _imported_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0:
+                yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("__import__", "import_module")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def _sources():
+    for dirpath, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_module_imports_jax_or_presto_tpu():
+    bad = []
+    n = 0
+    for path in _sources():
+        n += 1
+        for name in _imported_names(path):
+            if name.split(".")[0] in _BLOCKED:
+                bad.append((os.path.relpath(path, ROOT), name))
+    assert n > 20
+    assert not bad, bad
