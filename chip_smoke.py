@@ -9,16 +9,38 @@ Phases (any failure exits non-zero; nothing is caught):
    source, in parallel), with the build seconds and ptxas report;
 2. kernel against plain: each kernel's wrapper on tensors on the card at
    the shapes the main path gives it, held against its plain PyTorch
-   version (tolerance stated per kernel) and against itself on a repeat
-   (bit-identical), with CUDA-event times of the kernel, the plain
-   version and one PyTorch library call, and the least time the card
-   could take (``bound_ms``);
-3. SQL on the card: TPC-H Q1 and Q6 through
-   ``presto_tpu_torch.localrunner.LocalQueryRunner`` on ``cuda`` at
-   ``--scale``, rows held against a numpy oracle over the same generator
-   columns (1e-9 relative for doubles, exact for keys and counts), with
-   the kernels' launch counts over that run and the cold and warm wall
-   seconds.
+   version and against itself on a repeat, with CUDA-event times of the
+   kernel, the plain version and one PyTorch library call, and the least
+   time the card could take (``bound_ms``):
+   - B1 (segment sums): within 1e-12 relative of the plain version, and
+     bit-identical on a repeat;
+   - B2 (probe-insert and lookup): the same group partition as the plain
+     claim loop (same key -> same slot, distinct keys -> distinct slots),
+     the same found flags and the same ``ok``, on every repeat (slot ids
+     may differ: atomics decide who wins a contended slot), at Q3's join
+     build and probe, a GroupByHash batch into a small and a large table,
+     a collision storm and a full table;
+   - the float group sums of the direct (above B1's 32 groups), sort and
+     hash tiers: bit-identical on a repeat;
+3. SQL on the card, through ``presto_tpu_torch.localrunner.
+   LocalQueryRunner`` on ``cuda`` at ``--scale``, rows held against a numpy
+   oracle over the same generator columns (1e-9 relative for doubles,
+   exact for keys, counts and row order), with the cold and warm wall
+   seconds; each path runs with the launch counts set to 0 just before it
+   and read just after:
+   - TPC-H Q1 (B1 launched) and Q6;
+   - TPC-H Q3 (B2 launched in insert mode when a join build or the GROUP
+     BY took a hash tier, and in lookup mode exactly when a join build
+     took PagesHash, as Q3's customer build does up to SF4; the GROUP BY
+     on the hash tier from SF10) and the hash-tier GROUP BY ``l_partkey``
+     (B2 launched in insert mode); for both, the join and aggregation
+     inputs on cuda and two runs give the same bits.  Each path's counts
+     are printed on their own (``b2_launches``); the kernels line's
+     ``launches`` is Q3's (Q1's for B1), with every path's count beside
+     it under ``launches_by_path``.
+
+Phase 2 calls the wrappers the hash tiers call (``B2.insert``,
+``B2.lookup``) for its checks and times the kernel launch alone.
 
 The last lines are the kernels line ``{"kernels": [...]}``, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -33,9 +55,13 @@ import subprocess
 import sys
 import time
 
-# H100 SXM data sheet rates (the card's memory rate and float64 rate)
+# H100 SXM data sheet rates (the card's memory rate, float64 rate, and
+# the float32 rate outside the tensor cores, taken for 32-bit integer ops)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+INT_OPS_PER_S = 67e12
+L2_BYTES = 50e6
+SECTOR = 32
 
 Q1 = """
 select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
@@ -56,6 +82,25 @@ from lineitem
 where l_shipdate >= date '1994-01-01'
   and l_shipdate < date '1994-01-01' + interval '1' year
   and l_discount between 0.05 and 0.07 and l_quantity < 24
+"""
+
+
+Q3 = """
+select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+       o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+  and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15'
+  and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+"""
+
+# the inner aggregate of TPC-H Q17 and Q20: 200,000 groups per SF
+PARTKEY = """
+select l_partkey, sum(l_quantity), count(*) from lineitem
+group by l_partkey
 """
 
 
@@ -85,6 +130,27 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def cuda_ms_each(setup, fn, iters: int, warmup: int = 2) -> float:
+    """Mean CUDA-event time of ``fn`` over ``iters`` runs, each after an
+    untimed ``setup`` (a fresh table for an insert)."""
+    import torch
+
+    for _ in range(warmup):
+        setup()
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / iters
 
 
 # --------------------------------------------------------------------------
@@ -134,12 +200,250 @@ def check_segment_sums(n: int, g: int, a: int, seed: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def _hash_ops(n: int, k: int) -> float:
+    """Integer operations of the row hash: two multiply-xor-shift rounds
+    per key word, a 64-bit multiply counted as four 32-bit ones."""
+    return n * k * 2 * (4 + 3)
+
+
+def _check_partition(keys, slot, placed, cap: int, label: str) -> int:
+    """Rows in ``placed``: same key -> same slot, distinct keys ->
+    distinct slots, every slot in [0, cap).  Returns the key count."""
+    import torch
+
+    s = slot[placed].long()
+    if s.numel() and (int(s.min()) < 0 or int(s.max()) >= cap):
+        raise AssertionError(f"{label}: slot outside [0, {cap})")
+    uniq, inv = torch.unique(keys[placed], dim=0, return_inverse=True)
+    first = torch.full((uniq.shape[0],), -1, dtype=torch.int64,
+                       device=keys.device).scatter_(0, inv, s)
+    if not torch.equal(first[inv], s):
+        raise AssertionError(f"{label}: one key got two slots")
+    if torch.unique(s).numel() != uniq.shape[0]:
+        raise AssertionError(f"{label}: two keys share a slot")
+    return int(uniq.shape[0])
+
+
+def check_probe_insert(label: str, keys, live, cap: int,
+                       iters: int = 20) -> dict:
+    """B2 insert at one shape, through the wrapper the hash tiers call
+    (``B2.insert``: its input checks and its read of ``ok``): the
+    kernel's partition and ``ok`` against the plain claim loop's, twice,
+    and times of the kernel launch alone.  ``live`` None = all rows."""
+    import torch
+
+    from presto_tpu_torch.ops import hashtable as H
+    from presto_tpu_torch.ops import probe_insert as B2
+
+    n, k = keys.shape
+    tw, tc = H.empty_table(cap, k, "cuda")
+    live_all = (torch.ones(n, dtype=torch.bool, device="cuda")
+                if live is None else live)
+    oks = []
+    for _ in range(2):
+        tw.zero_()
+        tc.zero_()
+        slot, ok = B2.insert(keys, live, tw, tc)
+        if bool((slot[~live_all] != cap).any()):
+            raise AssertionError(f"{label}: a dead row got a slot")
+        placed = live_all & (slot != cap)
+        if ok and not bool(placed.eq(live_all).all()):
+            raise AssertionError(f"{label}: ok but a live row unplaced")
+        n_keys = _check_partition(keys, slot, placed, cap, label)
+        if int(H.used_slots(tc).sum()) != n_keys:
+            raise AssertionError(f"{label}: used slots != placed keys")
+        oks.append(ok)
+    pw, pc = H.empty_table(cap, k, "cuda")
+    pslot, pok = H.probe_insert(keys, live_all, pw, pc)
+    if pok:
+        _check_partition(keys, pslot, live_all, cap, label + " plain")
+    if oks != [pok, pok]:
+        raise AssertionError(f"{label}: ok {oks} (kernel) != {pok} (plain)")
+
+    def reset():
+        tw.zero_()
+        tc.zero_()
+
+    def reset_plain():
+        pw.zero_()
+        pc.zero_()
+
+    ms = cuda_ms_each(reset, lambda: B2.launch_insert(keys, live, tw, tc),
+                      iters)
+    plain_ms = cuda_ms_each(
+        reset_plain, lambda: H.probe_insert(keys, live_all, pw, pc),
+        max(2, iters // 10), warmup=1)
+    lk = keys[live_all]
+    library_ms = cuda_ms(
+        lambda: torch.unique(lk if k > 1 else lk[:, 0], dim=0 if k > 1
+                             else None, return_inverse=True), iters)
+    n_live = int(live_all.sum())
+    groups = int(H.used_slots(tc).sum())
+    table_bytes = cap * (4 + 8 * k)
+    nbytes = (n * (8 * k + 4 + (0 if live is None else 1))
+              + min(table_bytes, n_live * 2 * SECTOR)
+              + groups * (4 + 8 * k))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = _hash_ops(n_live, k) / INT_OPS_PER_S * 1e3
+    return {"shape": label, "n": n, "k": k, "cap": cap, "live": n_live,
+            "groups": groups, "ok": pok, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.unique(return_inverse=True)",
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def check_probe_lookup(label: str, build, probe, cap: int,
+                       iters: int = 20) -> dict:
+    """B2 lookup at one shape, through the wrapper the PagesHash probe
+    calls (``B2.lookup``): the kernel's found flags and slots against the
+    plain walk over the same table and against the true membership, twice,
+    and times of the kernel launch alone."""
+    import torch
+
+    from presto_tpu_torch.ops import hashtable as H
+    from presto_tpu_torch.ops import probe_insert as B2
+
+    n, k = probe.shape
+    tw, tc = H.empty_table(cap, k, "cuda")
+    _slot, ok = B2.insert(build, None, tw, tc)
+    if not ok:
+        raise AssertionError(f"{label}: the build did not fit")
+    live = torch.ones(n, dtype=torch.bool, device="cuda")
+    slot, found = B2.lookup(probe, live, tw, tc)
+    slot2, found2 = B2.lookup(probe, live, tw, tc)
+    pslot, pfound = H.probe_find(probe, live, tw, tc)
+    torch.cuda.synchronize()
+    truth = torch.isin(probe[:, 0], build[:, 0]) if k == 1 else None
+    if not (torch.equal(found, pfound) and torch.equal(found, found2)):
+        raise AssertionError(f"{label}: found flags differ from plain")
+    if truth is not None and not torch.equal(found, truth):
+        raise AssertionError(f"{label}: found flags differ from membership")
+    if not (torch.equal(slot[found], pslot[found])
+            and torch.equal(slot, slot2)):
+        raise AssertionError(f"{label}: found slots differ from plain")
+    ms = cuda_ms(lambda: B2.launch_lookup(probe, live, tw, tc), iters)
+    plain_ms = cuda_ms(lambda: H.probe_find(probe, live, tw, tc),
+                       max(2, iters // 10), warmup=1)
+    sorted_build = torch.sort(build[:, 0]).values
+    library_ms = cuda_ms(
+        lambda: torch.searchsorted(sorted_build, probe[:, 0]), iters)
+    table_bytes = cap * (4 + 8 * k)
+    nbytes = n * (8 * k + 1 + 4 + 1) + min(table_bytes, n * 2 * SECTOR)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = _hash_ops(n, k) / INT_OPS_PER_S * 1e3
+    return {"shape": label, "n": n, "k": k, "cap": cap,
+            "build": int(build.shape[0]), "found": int(found.sum()),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "torch.searchsorted(sorted build keys)",
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def b2_checks(seed: int):
+    """B2 at the main path's shapes (SF1) and at the hard cases."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int64)
+
+    # Q3's PagesHash build at SF1: ~30k distinct BIGINT customer keys
+    # (c_custkey of the BUILDING segment) into 2 x its 32,768-row
+    # capacity, probed by one 65,536-row batch of o_custkey
+    cust = torch.randperm(150_000, generator=gen, device="cuda")[:30_000]
+    build = (cust + 1).to(torch.int64)[:, None].contiguous()
+    probe = randint(1, 150_001, (65_536, 1))
+    # a GroupByHash batch: 65,536 rows of (l_partkey, null flag) words
+    part = torch.stack([randint(1, 200_001, (65_536,)),
+                        torch.zeros(65_536, dtype=torch.int64,
+                                    device="cuda")], 1)
+    # the collision storm of tests/test_pallas.py: 2,048 rows, 700 keys
+    storm = randint(0, 700, (2_048, 1))
+    live_storm = torch.ones(2_048, dtype=torch.bool, device="cuda")
+    # a full table: 1,000 distinct keys, 64 slots
+    full = torch.arange(1_000, dtype=torch.int64, device="cuda")[:, None]
+    inserts = [
+        check_probe_insert("q3_join_build", build, None, 65_536),
+        check_probe_insert("groupby_batch_8192", part, None, 8_192),
+        check_probe_insert("groupby_batch_524288", part, None, 524_288),
+        check_probe_insert("collision_storm", storm, live_storm, 2_048),
+        check_probe_insert("full_table", full, None, 64),
+    ]
+    if inserts[-1]["ok"]:
+        raise AssertionError("full table: ok must be False")
+    lookups = [check_probe_lookup("q3_join_probe", build, probe, 65_536)]
+    return inserts, lookups
+
+
+def c2_checks(seed: int):
+    """The float group sums of the direct (above 32 groups), sort and hash
+    tiers: the same bits on a repeat, and within 1e-9 relative of a
+    float64 ``index_add_``."""
+    import torch
+
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.ops import groupby as G
+    from presto_tpu_torch.ops import hashtable as H
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = 1 << 21
+    keys = torch.randint(0, 100_000, (n,), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    vals = torch.rand(n, generator=gen, device="cuda",
+                      dtype=torch.float64) * 1e5
+    codes = (keys % 64).to(torch.int32)
+
+    def direct():
+        _present, res = G.direct_grouped_aggregate(
+            [(codes, None)], [64], [("sum", vals, None)], n)
+        return res[0][0], torch.arange(64, device="cuda")
+
+    def sort():
+        gi, _ng, res = G.grouped_aggregate(
+            [(keys, None, T.BIGINT)], [("sum", vals, None)], n)
+        return res[0][0], keys[gi]
+
+    def hashed():
+        state = H.groupby_init(1 << 18, 2, [torch.int64], [True],
+                               [("sum", torch.float64)], "cuda")
+        for lo in range(0, n, 1 << 16):       # batch by batch
+            kc = [(keys[lo:lo + (1 << 16)], None, T.BIGINT)]
+            ai = [("sum", vals[lo:lo + (1 << 16)], None)]
+            state, _ng, ok = H.groupby_update(state, kc, ai, 1 << 16)
+            if not ok:
+                raise AssertionError("hash tier: the table did not fit")
+        _n, key_outs, agg_outs = H.groupby_extract(state)
+        order = torch.argsort(key_outs[0][0])
+        return agg_outs[0][0][order], key_outs[0][0][order]
+
+    out = {}
+    for name, fn, ids in (("direct", direct, codes.long()),
+                          ("sort", sort, keys), ("hash", hashed, keys)):
+        a, ka = fn()
+        b, kb = fn()
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(ka, kb)):
+            raise AssertionError(f"C2 {name} tier: two runs differ")
+        want = torch.zeros(int(ids.max()) + 1, dtype=torch.float64,
+                           device="cuda").index_add_(0, ids, vals)[ka]
+        rel = float(((a - want).abs() / want.abs().clamp(min=1.0)).max())
+        if rel > 1e-9:
+            raise AssertionError(f"C2 {name} tier: relative error {rel}")
+        out[name] = {"groups": int(a.shape[0]), "max_rel_err": rel,
+                     "bit_identical": True}
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 3: SQL on the card against a numpy oracle
 # --------------------------------------------------------------------------
 
-def lineitem_columns(scale: float, names):
-    """The generator's lineitem columns as host numpy arrays (codes
+def table_columns(scale: float, table: str, names):
+    """The generator's columns of ``table`` as host numpy arrays (codes
     decoded to strings for dictionary columns)."""
     import numpy as np
 
@@ -147,7 +451,7 @@ def lineitem_columns(scale: float, names):
     from presto_tpu_torch.connectors.tpch import TpchConnector
 
     conn = TpchConnector(scale=scale)
-    handle = conn.get_table("lineitem")
+    handle = conn.get_table(table)
     batches = []
     for split in conn.get_splits(handle, 1):
         batches.extend(conn.page_source(split, names, 1 << 24))
@@ -159,6 +463,10 @@ def lineitem_columns(scale: float, names):
             v = np.asarray(c.dictionary.values, dtype=object)[v]
         out[name] = v
     return out
+
+
+def lineitem_columns(scale: float, names):
+    return table_columns(scale, "lineitem", names)
 
 
 def oracle_q1(cols):
@@ -190,6 +498,51 @@ def oracle_q6(cols):
     return [(float((cols["l_extendedprice"][sel] * disc[sel]).sum()),)]
 
 
+def oracle_q3(scale: float, li):
+    """TPC-H Q3 over the generator's columns: numpy joins by sorted key
+    search, the group sums by ``np.add.at``, the order and the limit."""
+    import numpy as np
+
+    cut = _days(1995, 3, 15)
+    cu = table_columns(scale, "customer", ["c_custkey", "c_mktsegment"])
+    od = table_columns(scale, "orders", ["o_orderkey", "o_custkey",
+                                         "o_orderdate", "o_shippriority"])
+    cust = np.sort(cu["c_custkey"][cu["c_mktsegment"] == "BUILDING"])
+    osel = (od["o_orderdate"] < cut) & np.isin(od["o_custkey"], cust)
+    okey = od["o_orderkey"][osel]
+    order = np.argsort(okey)
+    okey = okey[order]
+    odate = od["o_orderdate"][osel][order]
+    oprio = od["o_shippriority"][osel][order]
+    lsel = li["l_shipdate"] > cut
+    lkey = li["l_orderkey"][lsel]
+    pos = np.clip(np.searchsorted(okey, lkey), 0, max(len(okey) - 1, 0))
+    hit = (okey[pos] == lkey) if len(okey) else np.zeros(len(lkey), bool)
+    rev = (li["l_extendedprice"][lsel] * (1.0 - li["l_discount"][lsel]))[hit]
+    gpos = pos[hit]
+    sums = np.zeros(len(okey))
+    np.add.at(sums, gpos, rev)
+    present = np.zeros(len(okey), bool)
+    present[gpos] = True
+    idx = np.nonzero(present)[0]
+    idx = idx[np.lexsort((odate[idx], -sums[idx]))][:10]
+    epoch = datetime.date(1970, 1, 1)
+    return [(int(okey[i]), float(sums[i]),
+             epoch + datetime.timedelta(days=int(odate[i])), int(oprio[i]))
+            for i in idx]
+
+
+def oracle_partkey(li):
+    """``group by l_partkey`` sum(l_quantity), count(*), by key."""
+    import numpy as np
+
+    keys, inv = np.unique(li["l_partkey"], return_inverse=True)
+    sums = np.zeros(len(keys))
+    np.add.at(sums, inv, li["l_quantity"])
+    cnt = np.bincount(inv, minlength=len(keys))
+    return [(int(k), float(s), int(c)) for k, s, c in zip(keys, sums, cnt)]
+
+
 def rows_match(got, want, label: str) -> None:
     if len(got) != len(want):
         raise AssertionError(f"{label}: {len(got)} rows, want {len(want)}")
@@ -202,6 +555,66 @@ def rows_match(got, want, label: str) -> None:
             elif x != y:
                 raise AssertionError(f"{label} row {r} col {c}: {x!r} != "
                                      f"{y!r}")
+
+
+class DeviceSpy:
+    """Records the device of every tensor the named ops functions get,
+    so a run can show its join and aggregation inputs were on the card."""
+
+    def __init__(self):
+        self.seen = []
+        self._undo = []
+
+    def wrap(self, module, name: str, label: str) -> None:
+        real = getattr(module, name)
+
+        def spy(*args, **kwargs):
+            self._record(label, args)
+            return real(*args, **kwargs)
+
+        setattr(module, name, spy)
+        self._undo.append((module, name, real))
+
+    def _record(self, label, obj) -> None:
+        import torch
+
+        if isinstance(obj, torch.Tensor):
+            self.seen.append((label, obj.device))
+        elif isinstance(obj, (list, tuple)):
+            for o in obj:
+                self._record(label, o)
+
+    def restore(self) -> None:
+        for module, name, real in reversed(self._undo):
+            setattr(module, name, real)
+        self._undo = []
+
+    def check(self, labels) -> None:
+        bad = [(q, str(d)) for q, d in self.seen if d.type != "cuda"]
+        missing = set(labels) - {q for q, _ in self.seen}
+        if bad or missing:
+            raise AssertionError(f"inputs not on cuda: {bad[:5]}, never "
+                                 f"seen: {sorted(missing)}")
+        self.seen = []
+
+
+def timed(runner, sql: str):
+    import torch
+
+    t0 = time.perf_counter()
+    res = runner.execute(sql)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def op_tiers(runner, operator: str):
+    """The kernel tiers the last query's ``operator`` instances ran."""
+    return sorted({s.kernel_tier for s in runner._last_task.operator_stats
+                   if operator in s.operator})
+
+
+def agg_tiers(runner):
+    return op_tiers(runner, "HashAggregation")
 
 
 def main() -> int:
@@ -219,6 +632,9 @@ def main() -> int:
         return 1
     from presto_tpu_torch import cuda_build
     from presto_tpu_torch.ops import groupby as G
+    from presto_tpu_torch.ops import hashtable as H
+    from presto_tpu_torch.ops import join as J
+    from presto_tpu_torch.ops import probe_insert as B2
     from presto_tpu_torch.ops import segment_sums as S
 
     card = card_line()
@@ -240,61 +656,112 @@ def main() -> int:
               for i, (n, g, a) in enumerate(shapes)]
     for c in checks:
         print("segment_sums " + json.dumps(c), flush=True)
+    inserts, lookups = b2_checks(args.seed)
+    for c in inserts:
+        print("probe_insert " + json.dumps(c), flush=True)
+    for c in lookups:
+        print("probe_lookup " + json.dumps(c), flush=True)
+    print("c2 " + json.dumps(c2_checks(args.seed)), flush=True)
 
     # -- phase 3: SQL on the card -----------------------------------------
     from presto_tpu_torch.localrunner import LocalQueryRunner
 
-    seen_devices = []
-    real_direct, real_global = (G.direct_grouped_aggregate,
-                                G.global_aggregate)
-
-    def direct_spy(key_codes, doms, aggs, num_rows, live_mask=None):
-        seen_devices.extend(("q1", codes.device) for codes, _ in key_codes)
-        seen_devices.extend(("q1", v.device) for _p, v, _ in aggs
-                            if v is not None)
-        return real_direct(key_codes, doms, aggs, num_rows, live_mask)
-
-    def global_spy(aggs, num_rows, live_mask=None):
-        seen_devices.extend(("q6", v.device) for _p, v, _ in aggs
-                            if v is not None)
-        return real_global(aggs, num_rows, live_mask)
-
-    G.direct_grouped_aggregate, G.global_aggregate = direct_spy, global_spy
     runner = LocalQueryRunner.tpch(scale=args.scale)
     if runner.device.type != "cuda":
         raise AssertionError(f"runner on {runner.device}")
-    names = ["l_returnflag", "l_linestatus", "l_quantity",
-             "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
     t0 = time.perf_counter()
+    names = ["l_returnflag", "l_linestatus", "l_quantity",
+             "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+             "l_orderkey", "l_partkey"]
     cols = lineitem_columns(args.scale, names)
-    want = {"q1": oracle_q1(cols), "q6": oracle_q6(cols)}
+    want = {"q1": oracle_q1(cols), "q6": oracle_q6(cols),
+            "q3": oracle_q3(args.scale, cols),
+            "partkey": oracle_partkey(cols)}
     n_rows = len(cols["l_shipdate"])
+    del cols
     print(f"oracle: {n_rows} lineitem rows in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-
+    sqls = {"q1": Q1, "q6": Q6, "q3": Q3, "partkey": PARTKEY}
+    key_sorted = {"partkey"}       # no ORDER BY: compare in key order
     walls = {}
-    S.LAUNCHES.reset()          # the main path: cold Q1, cold Q6
-    for label, sql in (("q1", Q1), ("q6", Q6)):
-        t0 = time.perf_counter()
-        res = runner.execute(sql)
-        torch.cuda.synchronize()
-        walls[label] = [time.perf_counter() - t0]
-        rows_match(res.rows, want[label], label)
-    launches = S.LAUNCHES.count
-    if launches < 1:
+    results = {}
+
+    def run(label):
+        res, wall = timed(runner, sqls[label])
+        rows = (sorted(res.rows) if label in key_sorted else res.rows)
+        rows_match(rows, want[label], label)
+        walls.setdefault(label, []).append(wall)
+        results.setdefault(label, []).append(rows)
+        return res
+
+    # the B1 path: cold Q1, then Q6, each with the counts set to 0 just
+    # before it (Q6's global sum launches no kernel of the port)
+    spy = DeviceSpy()
+    spy.wrap(G, "direct_grouped_aggregate", "q1")
+    spy.wrap(G, "global_aggregate", "q6")
+    for label in ("q1", "q6"):
+        S.LAUNCHES.reset()
+        B2.INSERT_LAUNCHES.reset()
+        B2.LOOKUP_LAUNCHES.reset()
+        run(label)
+        if label == "q1":
+            b1_launches = S.LAUNCHES.count
+        spy.check([label])
+    spy.restore()
+    if b1_launches < 1:
         raise AssertionError("Q1 ran without launching segment_sums")
-    bad = [(q, str(d)) for q, d in seen_devices if d.type != "cuda"]
-    if bad or {q for q, _ in seen_devices} != {"q1", "q6"}:
-        raise AssertionError(f"aggregation inputs not on cuda: "
-                             f"{seen_devices}")
-    for label, sql in (("q1", Q1), ("q6", Q6)):
+
+    # this slice's paths, each cold with the counts set to 0 just before
+    # it and read just after: Q3, then the hash-tier GROUP BY
+    spy.wrap(H, "pages_hash_build", "join")
+    spy.wrap(H, "pages_hash_probe", "join")
+    spy.wrap(J, "probe_counts", "join")
+    spy.wrap(H, "groupby_update", "aggregation")
+    spy.wrap(G, "grouped_aggregate", "aggregation")
+    b2_launches = {}
+    tiers = {}
+    for label, inputs in (("q3", ["join", "aggregation"]),
+                          ("partkey", ["aggregation"])):
+        S.LAUNCHES.reset()
+        B2.INSERT_LAUNCHES.reset()
+        B2.LOOKUP_LAUNCHES.reset()
+        run(label)
+        b2_launches[label] = {"insert": B2.INSERT_LAUNCHES.count,
+                              "lookup": B2.LOOKUP_LAUNCHES.count}
+        tiers[label] = agg_tiers(runner)
+        if label == "q3":
+            join_tiers = op_tiers(runner, "LookupJoin")
+        spy.check(inputs)
+    spy.restore()
+    # Q3's customer build (30,000 rows per SF) takes PagesHash up to the
+    # 2^17-row bound of device_join_probe_max_build_rows: at SF1, not SF10
+    if args.scale <= 1 and "hash" not in join_tiers:
+        raise AssertionError(f"Q3's joins ran on {join_tiers}")
+    q3_hash = "hash" in join_tiers or tiers["q3"] == ["hash"]
+    if ((b2_launches["q3"]["insert"] > 0) != q3_hash
+            or (b2_launches["q3"]["lookup"] > 0) != ("hash" in join_tiers)):
+        raise AssertionError(f"Q3's B2 launches {b2_launches['q3']}; join "
+                             f"tiers {join_tiers}, GROUP BY {tiers['q3']}")
+    if b2_launches["partkey"]["insert"] < 1:
+        raise AssertionError("the partkey GROUP BY ran without launching "
+                             "probe_insert")
+    if tiers["partkey"] != ["hash"]:
+        raise AssertionError(f"partkey GROUP BY ran on {tiers['partkey']}")
+    if args.scale >= 10 and tiers["q3"] != ["hash"]:
+        raise AssertionError(f"Q3 GROUP BY at SF{args.scale} ran on "
+                             f"{tiers['q3']}")
+    print("b2_launches " + json.dumps({
+        "by_path": b2_launches, "agg_tiers": tiers,
+        "q3_join_tiers": join_tiers}), flush=True)
+
+    for label in ("q1", "q6", "q3", "partkey"):
         for _ in range(2):
-            t0 = time.perf_counter()
-            res = runner.execute(sql)
-            torch.cuda.synchronize()
-            walls[label].append(time.perf_counter() - t0)
-            rows_match(res.rows, want[label], label)
-    G.direct_grouped_aggregate, G.global_aggregate = real_direct, real_global
+            run(label)
+    for label in ("q3", "partkey"):
+        # C2: the same bits on every run, whatever slot ids B2 handed out
+        first = results[label][0]
+        if any(r != first for r in results[label][1:]):
+            raise AssertionError(f"{label}: runs differ in their bits")
     for label, w in walls.items():
         warm = min(w[1:])
         print("sql " + json.dumps({
@@ -302,15 +769,30 @@ def main() -> int:
             "cold_s": w[0], "warm_s": warm,
             "warm_rows_per_s": n_rows / warm, "card": card}), flush=True)
 
-    q1 = checks[0]
-    kernels = [{
-        "name": "direct_segment_sums", "route": "cuda",
-        "source": "presto_tpu_torch/csrc/segment_sums.cu",
-        "replaces": "presto_tpu/ops/pallas_groupby.py:48",
-        "launches": launches, "max_abs_err": q1["max_abs_err"],
-        "ms": q1["ms"], "plain_ms": q1["plain_ms"],
-        "bound_ms": q1["bound_ms"], "bound_by": q1["bound_by"],
-        "library_ms": q1["library_ms"]}]
+    def entry(name, source, replaces, launches, c):
+        """``launches``: {path: count of that path's own run}; the key
+        ``launches`` is the count on this slice's main path (Q3), or Q1's
+        for B1."""
+        main = launches.get("q3", launches.get("q1"))
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": main,
+                "launches_by_path": launches,
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+
+    kernels = [
+        entry("direct_segment_sums",
+              "presto_tpu_torch/csrc/segment_sums.cu",
+              "presto_tpu/ops/pallas_groupby.py:48", {"q1": b1_launches},
+              checks[0]),
+        entry("probe_insert", "presto_tpu_torch/csrc/probe_insert.cu",
+              "presto_tpu/ops/pallas_hash.py:44",
+              {p: c["insert"] for p, c in b2_launches.items()}, inserts[0]),
+        entry("probe_lookup", "presto_tpu_torch/csrc/probe_insert.cu",
+              "presto_tpu/ops/pallas_hash.py:44",
+              {p: c["lookup"] for p, c in b2_launches.items()}, lookups[0]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,33 @@ class EngineConfig:
     optimizer_use_memo: bool = True
     memo_max_reorder_relations: int = 9
     hash_partition_count: int = 0
+    # --- hash tiers (exec/aggregation.py, exec/joinop.py) --------------
+    # Build-side key domains prune probe rows before the join
+    # (DynamicFilterSourceOperator role).
+    dynamic_filtering_enabled: bool = True
+    # Resident GroupByHash tier: group state stays on the device across
+    # batches in an open-addressing table (ops/hashtable.py, kernel B2
+    # on a CUDA tensor).
+    hash_groupby_enabled: bool = True
+    # first table capacity (slots, a power of two); the rehash ladder
+    # doubles it while fill exceeds 1/2
+    hash_groupby_init_slots: int = 1 << 13
+    # input rows below which an aggregation stays on the sort tier
+    hash_groupby_min_rows: int = 1 << 17
+    # rehash ceiling: above it the accumulated state is carried over and
+    # the rest of the input takes the sort tier
+    hash_groupby_max_slots: int = 1 << 22
+    # PagesHash join tier: the build side's keys go into the same
+    # open-addressing table and probes resolve their match ranges through
+    # it.  Keys that cannot take the single/packed id tiers always use it.
+    device_join_probe: bool = True
+    # builds larger than this keep the sorted index for packable keys
+    device_join_probe_max_build_rows: int = 1 << 17
+    # Take the accelerator branch's PagesHash choice for packable keys on
+    # every device, not only on cuda: the CPU tests set it to reach that
+    # tier (the counterpart of the JAX package's PRESTO_TPU_RADIX=1
+    # switch).  It changes no result.
+    force_pages_hash: bool = False
 
 
 DEFAULT = EngineConfig()

@@ -74,8 +74,8 @@ class OperatorStats:
     output_rows: int = 0
     wall_ns: int = 0
     finish_wall_ns: int = 0
-    # which kernel tier served this operator's group-by: "direct"
-    # (bounded-domain) is the only one this package runs yet
+    # which kernel tier served the operator: "direct", "sort", "hash" or
+    # "hash+sort" for a GROUP BY; "hash" or "sorted" for a join
     kernel_tier: str = ""
 
     def as_dict(self) -> Dict:

@@ -39,17 +39,31 @@ class LocalExchange:
         self._cursor = 0
         self._capacity = max(capacity // max(n_producers, 1), 2)
         self._error: Optional[BaseException] = None
+        self._closed = False
         self._cond = threading.Condition()
 
     def put(self, producer: int, batch: Batch) -> None:
         with self._cond:
             q = self._queues[producer]
-            while len(q) >= self._capacity and self._error is None:
+            while (len(q) >= self._capacity and self._error is None
+                   and not self._closed):
                 self._cond.wait(timeout=1.0)
             if self._error is not None:
                 raise self._error
-            q.append(batch)
+            if not self._closed:
+                q.append(batch)
             self._cond.notify_all()
+
+    def close(self) -> None:
+        """The consumer finished early (a LIMIT was reached): producers
+        stop, and whatever they still send is dropped."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     def producer_finished(self, producer: int) -> None:
         with self._cond:
@@ -114,13 +128,16 @@ class LocalExchangeSinkOperator(Operator):
         self.ctx.stats.input_rows += batch.num_rows
         self.exchange.put(self.producer, batch)
 
+    def needs_input(self) -> bool:
+        return not self._finishing and not self.exchange.closed
+
     def finish(self) -> None:
         if not self._finishing and self.signal_finish:
             self.exchange.producer_finished(self.producer)
         super().finish()
 
     def is_finished(self) -> bool:
-        return self._finishing
+        return self._finishing or self.exchange.closed
 
 
 class LocalExchangeSinkOperatorFactory(OperatorFactory):

@@ -183,6 +183,44 @@ class FilterProjectOperatorFactory(OperatorFactory):
                                      self.input_types)
 
 
+class LimitOperator(Operator):
+    """LIMIT without ORDER BY: the first ``limit`` rows in arrival order
+    (LimitOperator.java role)."""
+
+    def __init__(self, ctx: OperatorContext, limit: int):
+        super().__init__(ctx)
+        self.remaining = limit
+        self._pending: Optional[Batch] = None
+
+    def needs_input(self) -> bool:
+        return (self._pending is None and self.remaining > 0
+                and not self._finishing)
+
+    def add_input(self, batch: Batch) -> None:
+        self.ctx.stats.input_rows += batch.num_rows
+        if batch.num_rows > self.remaining:
+            batch = batch.head(self.remaining)
+        self.remaining -= batch.num_rows
+        self._pending = batch
+        self.ctx.stats.output_rows += batch.num_rows
+
+    def get_output(self) -> Optional[Batch]:
+        out, self._pending = self._pending, None
+        return out
+
+    def is_finished(self) -> bool:
+        return (self.remaining == 0 or self._finishing) and \
+            self._pending is None
+
+
+class LimitOperatorFactory(OperatorFactory):
+    def __init__(self, limit: int):
+        self.limit = limit
+
+    def create(self, ctx: OperatorContext) -> LimitOperator:
+        return LimitOperator(ctx, self.limit)
+
+
 class OutputCollector(Operator):
     """Terminal sink gathering result batches on the host
     (TaskOutputOperator / test MaterializedResult role)."""

@@ -75,6 +75,9 @@ def _run_parallel(p: Pipeline, task: TaskContext, prefix: int,
         + p.factories[prefix:], name=p.name)
     try:
         consumer.instantiate(task).run_to_completion(deadline=deadline)
+        # a consumer that finished before draining (LIMIT) releases the
+        # feeders instead of leaving them blocked on backpressure
+        exchange.close()
     except BaseException as e:
         # unblock feeders stuck in put() backpressure, then re-raise
         exchange.fail(e)

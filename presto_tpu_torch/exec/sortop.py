@@ -1,11 +1,12 @@
-"""ORDER BY operator (OrderByOperator.java:45).
+"""ORDER BY / TopN operator (OrderByOperator.java:45, TopNOperator.java:35).
 
 It materializes (as the reference's PagesIndex does), builds the sort
-permutation once on the device, and gathers.  Varchar keys order by the
+permutation once on the device, and gathers.  TopN (ORDER BY + LIMIT) is
+the same sort with a truncated output, as in the JAX package.  Varchar keys order by the
 lexicographic rank of their dictionary codes (``Dictionary.sort_ranks``),
 computed on the host over the dictionary: strings never sort on the
-device.  TopN (ORDER BY + LIMIT) and the spilled external sort are
-ROADMAP A4 and A5.
+device.  The spilled external sort (sorted runs + merge) and the radix
+sort are ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ class SortSpec:
 
 
 class OrderByOperator(Operator):
-    def __init__(self, ctx: OperatorContext, specs: Sequence[SortSpec]):
+    def __init__(self, ctx: OperatorContext, specs: Sequence[SortSpec],
+                 limit: Optional[int] = None):
         super().__init__(ctx)
         self.specs = list(specs)
+        self.limit = limit
         self._batches: List[Batch] = []
         self._outputs: List[Batch] = []
 
@@ -78,8 +81,10 @@ class OrderByOperator(Operator):
         self._batches = []
         self.ctx.memory.free()
         if out is not None:
-            self._outputs.append(out.head(out.num_rows))
-            self.ctx.stats.output_rows += out.num_rows
+            n = out.num_rows if self.limit is None else min(
+                self.limit, out.num_rows)
+            self._outputs.append(out.head(n))
+            self.ctx.stats.output_rows += n
 
     def get_output(self) -> Optional[Batch]:
         if not self._outputs:
@@ -91,8 +96,10 @@ class OrderByOperator(Operator):
 
 
 class OrderByOperatorFactory(OperatorFactory):
-    def __init__(self, specs: Sequence[SortSpec]):
+    def __init__(self, specs: Sequence[SortSpec],
+                 limit: Optional[int] = None):
         self.specs = list(specs)
+        self.limit = limit
 
     def create(self, ctx: OperatorContext) -> OrderByOperator:
-        return OrderByOperator(ctx, self.specs)
+        return OrderByOperator(ctx, self.specs, self.limit)

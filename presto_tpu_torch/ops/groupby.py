@@ -14,9 +14,20 @@ This module holds the tiers this package runs:
   counts through the hand-written kernel ``direct_segment_sums``
   (ops/segment_sums.py) when the domain is small, ``index_add_`` above
   that; exact integer sums and min/max through native-dtype scatters.
+- **sort** (``grouped_aggregate``): any keys.  Rows sort by their
+  normalized key words (a stable sort, so rows of one group keep their
+  input order), run boundaries give the group ids, and each group reduces
+  in that order.
+- **hash**: the resident GroupByHash state of ``ops/hashtable.py``
+  (kernel B2 on a CUDA tensor), driven by exec/aggregation.py.
 - **global** (``global_aggregate``): one output row.
 
-The sort and hash GROUP BY tiers of the JAX package are ROADMAP A4.
+Float group sums are the same bits on every run, on every tier: each
+group's sum is taken over its rows in input order by one fixed-order
+reduction, ``sorted_segment_sums`` (``torch.segment_reduce`` over rows
+already sorted by group), never by float atomics (``index_add_`` on CUDA
+adds in whatever order its atomics land).  Integer sums stay exact
+native-dtype scatters, and min/max do not depend on order.
 
 Aggregation primitives are sum/count/min/max (the planner decomposes
 avg/stddev/... into these, mirroring the partial/final Step split of
@@ -29,13 +40,62 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from presto_tpu_torch import types as T
+from presto_tpu_torch.ops.keys import normalize_keys
 from presto_tpu_torch.ops.segment_sums import (
-    MAX_SEGMENTS, direct_segment_sums, direct_segment_sums_reference,
+    MAX_SEGMENTS, direct_segment_sums,
 )
 
 # One aggregation input: (prim, values, valid|None) with prim in
 # {'sum','count','min','max'}; 'count' ignores values.
 AggIn = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def sorted_segment_sums(vals: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """Sums of consecutive runs of ``vals`` (``[N]`` or ``[N, A]``, rows
+    already grouped), ``lengths[g]`` rows for run g: each run summed in
+    row order.  The one fixed-order reduction every float group sum goes
+    through."""
+    if vals.shape[0] == 0:
+        return torch.zeros((lengths.shape[0],) + tuple(vals.shape[1:]),
+                           dtype=vals.dtype, device=vals.device)
+    return torch.segment_reduce(vals, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
+def _runs(sorted_ids: torch.Tensor):
+    """(first position, length) of each run of equal ids."""
+    n = sorted_ids.shape[0]
+    boundary = torch.ones(n, dtype=torch.bool, device=sorted_ids.device)
+    boundary[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    starts = torch.nonzero(boundary).squeeze(1)
+    ends = torch.cat([starts[1:], torch.tensor([n], device=starts.device)])
+    return starts, ends - starts
+
+
+def fixed_order_segment_sums(gid: torch.Tensor, vals: torch.Tensor):
+    """Per distinct ``gid`` (int64 ``[N]``), the sum of its rows of
+    ``vals`` in row order: ``(ids [G] ascending, sums [G, ...])``.  A
+    stable sort groups the rows without reordering a group, then
+    ``sorted_segment_sums`` reduces them: the same bits on every run."""
+    if gid.shape[0] == 0:
+        return gid, vals[:0]
+    perm = torch.argsort(gid, stable=True)
+    g = gid[perm]
+    starts, lengths = _runs(g)
+    return g[starts], sorted_segment_sums(vals[perm], lengths)
+
+
+def segment_sums(gid: torch.Tensor, vals: torch.Tensor,
+                 n_seg: int) -> torch.Tensor:
+    """Dense ``[n_seg, ...]`` sums of ``vals`` rows by ``gid`` in
+    ``[0, n_seg)``, in fixed order (``fixed_order_segment_sums``)."""
+    out = torch.zeros((n_seg,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    ids, sums = fixed_order_segment_sums(gid.to(torch.int64), vals)
+    out[ids] = sums
+    return out
 
 
 def _min_identity(dtype: torch.dtype):
@@ -54,6 +114,19 @@ def _max_identity(dtype: torch.dtype):
     return torch.iinfo(dtype).min
 
 
+def scatter_extreme_(acc: torch.Tensor, gid: torch.Tensor,
+                     values: torch.Tensor, prim: str) -> torch.Tensor:
+    """``acc[g] = min/max(acc[g], values of the rows of g)``, in place and
+    exact in ``acc``'s dtype (the order of the rows does not matter)."""
+    if acc.dtype == torch.bool:
+        # scatter_reduce has no bool kernels: reduce as uint8
+        tmp = scatter_extreme_(acc.to(torch.uint8), gid,
+                               values.to(torch.uint8), prim)
+        return acc.copy_(tmp.to(torch.bool))
+    return acc.scatter_reduce_(0, gid.long(), values.to(acc.dtype),
+                               "amin" if prim == "min" else "amax")
+
+
 def _segment_extreme(values: torch.Tensor, live: torch.Tensor,
                      gid: torch.Tensor, n_seg: int, prim: str
                      ) -> torch.Tensor:
@@ -61,17 +134,95 @@ def _segment_extreme(values: torch.Tensor, live: torch.Tensor,
     segment saw none), exact in the values' dtype."""
     ident = _min_identity(values.dtype) if prim == "min" \
         else _max_identity(values.dtype)
-    if values.dtype == torch.bool:
-        # scatter_reduce has no bool kernels: reduce as uint8
-        out = _segment_extreme(values.to(torch.uint8), live, gid, n_seg,
-                               prim)
-        return out.to(torch.bool)
     v = torch.where(live, values, torch.full_like(values, ident))
     out = torch.full((n_seg,), ident, dtype=values.dtype,
                      device=values.device)
-    return out.scatter_reduce_(0, gid.long(), v,
-                               "amin" if prim == "min" else "amax",
-                               include_self=True)
+    return scatter_extreme_(out, gid, v, prim)
+
+
+def _segment_ids(key_words: List[torch.Tensor], pad: torch.Tensor):
+    """Sort rows by (pad, keys); return (perm, gid_sorted, boundary).
+
+    torch has no ``lexsort``: the permutation is built from stable
+    argsorts, minor word first, pad flag last (the primary word), so rows
+    of one group keep their input order."""
+    n = pad.shape[0]
+    device = pad.device
+    # zero pad rows' keys so they collide into one trailing run
+    cleaned = [torch.where(pad, torch.zeros_like(w), w) for w in key_words]
+    perm = torch.arange(n, device=device)
+    for w in reversed([pad.to(torch.int8)] + cleaned):
+        perm = perm[torch.argsort(w[perm], stable=True)]
+    sorted_pad = pad[perm]
+    boundary = torch.zeros(n, dtype=torch.bool, device=device)
+    if n:
+        boundary[0] = True
+    for w in cleaned:
+        ws = w[perm]
+        boundary[1:] |= ws[1:] != ws[:-1]
+    boundary[1:] |= sorted_pad[1:] != sorted_pad[:-1]
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    return perm, gid, boundary
+
+
+def grouped_aggregate(
+    key_columns: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor],
+                                T.Type]],
+    aggs: Sequence[AggIn],
+    num_rows: int,
+    live_mask: Optional[torch.Tensor] = None,
+):
+    """The sort tier: aggregate ``aggs`` per distinct key tuple.
+
+    All tensors share one row capacity; rows ``[0, num_rows)`` are live
+    (and ``live_mask``, a fused upstream filter).  Returns::
+
+        (group_index [G] int64,   # row index of each group's first row
+         num_groups  int,
+         results     [(values [G], count_nonnull [G])])
+
+    Groups come out in key-word order.  Key columns are gathered by the
+    caller via ``group_index``.  Eager torch sizes every output exactly,
+    so there is no capacity to overflow (the JAX package re-runs at the
+    next bucket).
+    """
+    cap = key_columns[0][0].shape[0]
+    device = key_columns[0][0].device
+    pad = torch.arange(cap, device=device) >= num_rows
+    if live_mask is not None:
+        pad = pad | ~live_mask
+    key_words, _ = normalize_keys(key_columns, nulls_equal=True)
+    perm, gid, _boundary = _segment_ids(key_words, pad)
+    # pad rows sort last: the live rows are the leading positions
+    n_live = int((~pad).sum())
+    perm, gid = perm[:n_live], gid[:n_live]
+    starts, lengths = _runs(gid)
+    num_groups = int(starts.shape[0])
+    group_index = perm[starts]
+
+    results = []
+    for prim, values, valid in aggs:
+        live = ~pad if valid is None else (~pad & valid)
+        live_sorted = live[perm]
+        cnt = torch.zeros(num_groups, dtype=torch.int64, device=device)
+        cnt.index_add_(0, gid, live_sorted.to(torch.int64))
+        if prim == "count":
+            results.append((cnt, cnt))
+            continue
+        v = values[perm]
+        if prim == "sum":
+            v = torch.where(live_sorted, v, torch.zeros_like(v))
+            if v.dtype.is_floating_point:
+                out = sorted_segment_sums(v, lengths)
+            else:
+                out = torch.zeros(num_groups, dtype=v.dtype,
+                                  device=device).index_add_(0, gid, v)
+        elif prim in ("min", "max"):
+            out = _segment_extreme(v, live_sorted, gid, num_groups, prim)
+        else:
+            raise ValueError(f"unknown aggregation primitive {prim}")
+        results.append((out, cnt))
+    return group_index, num_groups, results
 
 
 def direct_grouped_aggregate(
@@ -139,7 +290,7 @@ def direct_grouped_aggregate(
         # tensor) or its plain version (a CPU tensor)
         reduced = direct_segment_sums(gid, m, n_seg)
     else:
-        reduced = direct_segment_sums_reference(gid, m, n_seg)
+        reduced = segment_sums(gid, m, n_seg)
     reduced = reduced[:total]                    # [G, A]
 
     star = torch.round(reduced[:, -1]).to(torch.int64)

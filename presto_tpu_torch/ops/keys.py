@@ -14,8 +14,10 @@ reduce to integer sort/compare problems:
   never its TPU f32 bitcast,
 - dictionary codes -> the code (equality-correct within one dictionary).
 
-Null handling is the SQL rule for GROUP BY: nulls form a group (the null
-flag becomes an extra key word).
+Null handling is the SQL rule, split by use:
+- GROUP BY: nulls form a group (the null flag becomes an extra key word),
+- JOIN keys: null never equals anything (the row is masked out of
+  matching).
 """
 
 from __future__ import annotations
@@ -40,17 +42,30 @@ def to_sortable_i64(values: torch.Tensor, typ: T.Type) -> torch.Tensor:
 
 
 def normalize_keys(columns: Sequence[Tuple[torch.Tensor,
-                                           Optional[torch.Tensor], T.Type]]
-                   ) -> List[torch.Tensor]:
-    """GROUP BY key words (IS NOT DISTINCT FROM semantics): a nullable
-    column contributes its zeroed value word and its null flag."""
+                                           Optional[torch.Tensor], T.Type]],
+                   nulls_equal: bool
+                   ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """Returns ``(key_words, null_row)``.
+
+    ``nulls_equal=True`` (GROUP BY / IS NOT DISTINCT FROM): a nullable
+    column contributes its zeroed value word and its null flag;
+    ``null_row`` is None.
+    ``nulls_equal=False`` (JOIN): any-null rows are reported in
+    ``null_row`` so the caller can exclude them from matching.
+    """
     words: List[torch.Tensor] = []
+    null_row = None
     for values, valid, typ in columns:
         w = to_sortable_i64(values, typ)
         if valid is not None:
-            # zero the value so all-null rows collide, key the flag
-            words.append(torch.where(valid, w, torch.zeros_like(w)))
-            words.append((~valid).to(torch.int64))
+            if nulls_equal:
+                # zero the value so all-null rows collide, key the flag
+                words.append(torch.where(valid, w, torch.zeros_like(w)))
+                words.append((~valid).to(torch.int64))
+            else:
+                words.append(w)
+                null_row = ~valid if null_row is None else (null_row
+                                                             | ~valid)
         else:
             words.append(w)
-    return words
+    return words, null_row

@@ -10,8 +10,9 @@ and ``finalize`` becomes a post-aggregation projection (avg = sum/count,
 stddev/variance from the moment components) — the role the reference's
 AccumulatorCompiler + partial/final Step split plays.
 
-This package lowers scans, filter/project, aggregation, ORDER BY and the
-output; the runner adds the local exchange.  Every other node raises
+This package lowers scans, filter/project, aggregation, inner and left
+hash joins (with dynamic filters), ORDER BY, TopN, LIMIT and the output;
+the runner adds the local exchange.  Every other node raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.  There is
 no pipeline-fusion post-pass: the chains run unfused.
 """
@@ -29,9 +30,12 @@ from presto_tpu_torch.exec.aggregation import (
     HashAggregationOperatorFactory,
 )
 from presto_tpu_torch.exec.driver import Pipeline
+from presto_tpu_torch.exec.joinop import (
+    HashBuildOperatorFactory, LookupJoinOperatorFactory,
+)
 from presto_tpu_torch.exec.operators import (
-    FilterProjectOperatorFactory, OutputCollectorFactory,
-    TableScanOperatorFactory,
+    FilterProjectOperatorFactory, LimitOperatorFactory,
+    OutputCollectorFactory, TableScanOperatorFactory,
 )
 from presto_tpu_torch.exec.sortop import OrderByOperatorFactory, SortSpec
 from presto_tpu_torch.expr import build as B
@@ -46,9 +50,7 @@ from presto_tpu_torch.sql.plan import (
 # plan nodes this package does not lower yet -> the ROADMAP item porting
 # them
 _NOT_PORTED = (
-    (JoinNode, "A4 (hash join)"),
-    (SemiJoinNode, "A4 (hash join)"),
-    (LimitNode, "A4 (TopN / limit)"),
+    (SemiJoinNode, "A4 (semi and anti joins)"),
     (ValuesNode, "A5 (values)"),
     (EnforceSingleRowNode, "A5 (nested-loop operators)"),
     (WindowNode, "A5 (window functions)"),
@@ -81,6 +83,7 @@ class PhysicalPlanner:
         self.device = device
         self.config = config
         self._done_pipelines: List[Pipeline] = []
+        self._counter = 0
 
     def plan(self, root: OutputNode) -> PhysicalPlan:
         factories, splits = self._lower(root.source)
@@ -119,6 +122,20 @@ class PhysicalPlanner:
                      for c, asc, nf in node.sort_keys]
             chain.append(OrderByOperatorFactory(specs))
             return chain, splits
+        if isinstance(node, LimitNode):
+            if isinstance(node.source, SortNode):
+                # TopN fusion (TopNOperator.java:35 role): sort + limit
+                # becomes one truncated sort
+                chain, splits = self._lower(node.source.source)
+                specs = [SortSpec(c, not asc, bool(nf))
+                         for c, asc, nf in node.source.sort_keys]
+                chain.append(OrderByOperatorFactory(specs, node.count))
+                return chain, splits
+            chain, splits = self._lower(node.source)
+            chain.append(LimitOperatorFactory(node.count))
+            return chain, splits
+        if isinstance(node, JoinNode):
+            return self._lower_join(node)
         for cls, item in _NOT_PORTED:
             if isinstance(node, cls):
                 raise _not_ported(f"{cls.__name__} lowering", item)
@@ -190,6 +207,76 @@ class PhysicalPlanner:
             chain.append(FilterProjectOperatorFactory(
                 None, exprs, post_in))
         return chain, splits
+
+
+    def _insert_dynamic_filter(self, chain: List, dyn,
+                               key_channels: List[int]) -> None:
+        """Place the runtime filter as close to the scan as channel
+        provenance allows (the reference pushes dynamic filters into the
+        probe-side TableScan, LocalDynamicFilter.java:45): walk backwards
+        over FilterProject stages remapping key channels through pure
+        InputRef projections, stopping at any operator that changes row
+        identity."""
+        from presto_tpu_torch.exec.dynamicfilter import (
+            DynamicFilterOperatorFactory,
+        )
+
+        pos = len(chain)
+        keys = list(key_channels)
+        i = len(chain) - 1
+        while i >= 0:
+            f = chain[i]
+            if not isinstance(f, FilterProjectOperatorFactory):
+                break
+            mapped = []
+            for k in keys:
+                p = f.projections[k] if k < len(f.projections) else None
+                if not isinstance(p, InputRef):
+                    mapped = None
+                    break
+                mapped.append(p.index)
+            if mapped is None:
+                break
+            keys = mapped
+            pos = i
+            i -= 1
+        chain.insert(pos, DynamicFilterOperatorFactory(dyn, keys))
+
+    def _lower_join(self, node: JoinNode):
+        if node.kind not in ("inner", "left"):
+            item = ("A5 (nested-loop operators)" if node.kind == "cross"
+                    else "A4 (right and full joins)")
+            raise _not_ported(f"{node.kind} join", item)
+        build_chain, build_splits = self._lower(node.right)
+        chain, splits = self._lower(node.left)
+        dyn = None
+        if node.kind == "inner" and self.config.dynamic_filtering_enabled:
+            from presto_tpu_torch.exec.dynamicfilter import DynamicFilter
+
+            dyn = DynamicFilter(len(node.right_keys))
+        build = HashBuildOperatorFactory(
+            list(node.right_keys), [t for _, t in node.right.columns],
+            dynamic_filter=dyn)
+        build_chain.append(build)
+        self._done_pipelines.append(
+            Pipeline(build_chain, build_splits, name=self._name("build")))
+        if dyn is not None:
+            self._insert_dynamic_filter(chain, dyn, list(node.left_keys))
+        chain.append(LookupJoinOperatorFactory(
+            build, list(node.left_keys), [t for _, t in node.left.columns],
+            join_type=node.kind))
+        if node.residual is not None:
+            if node.kind != "inner":
+                raise NotImplementedError("left-join residual not supported")
+            types = [t for _, t in node.columns]
+            proj = [InputRef(i, t) for i, t in enumerate(types)]
+            chain.append(FilterProjectOperatorFactory(
+                node.residual, proj, types))
+        return chain, splits
+
+    def _name(self, prefix: str) -> str:
+        self._counter += 1
+        return f"{prefix}{self._counter}"
 
 
 def _coerce_to(expr: RowExpression, typ: T.Type) -> RowExpression:

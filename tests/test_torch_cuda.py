@@ -1,6 +1,7 @@
 """presto_tpu_torch on a CUDA card: the hand-written kernels against
-their plain PyTorch versions, and SQL on cuda against the same SQL on
-the CPU.  Every test here needs the card and skips without one.
+their plain PyTorch versions, the repeat-run bit identity of the float
+group sums on every tier, and SQL on cuda against the same SQL on the
+CPU.  Every test here needs the card and skips without one.
 
 This file imports neither jax nor presto_tpu, so it also runs where jax
 is not installed:
@@ -17,7 +18,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+import chip_smoke as C  # noqa: E402
 from presto_tpu_torch.localrunner import LocalQueryRunner  # noqa: E402
+from presto_tpu_torch.ops import probe_insert as B2  # noqa: E402
 from presto_tpu_torch.ops import segment_sums as S  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +76,67 @@ def test_q1_on_cuda_matches_cpu(card):
                 assert x == pytest.approx(y, rel=1e-9, abs=0.0)
             else:
                 assert x == y
+
+
+def test_probe_insert_and_lookup_match_claim_loop(card):
+    """B2 at the chip_smoke shapes (Q3's join build and probe at SF1, a
+    GroupByHash batch into a small and a large table, the collision
+    storm, a full table): the claim loop's partition, found flags and
+    ok, on every repeat."""
+    before = (B2.INSERT_LAUNCHES.count, B2.LOOKUP_LAUNCHES.count)
+    inserts, lookups = C.b2_checks(seed=3)
+    assert [c["ok"] for c in inserts] == [True, False, True, True, False]
+    assert lookups[0]["found"] > 0
+    assert B2.INSERT_LAUNCHES.count > before[0]
+    assert B2.LOOKUP_LAUNCHES.count > before[1]
+
+
+def test_float_group_sums_bit_identical_on_every_tier(card):
+    """C2: the direct (above 32 groups), sort and hash tiers give the
+    same bits on a repeat (and agree with index_add_ to 1e-9)."""
+    out = C.c2_checks(seed=5)
+    assert set(out) == {"direct", "sort", "hash"}
+
+
+def test_q3_on_cuda_matches_cpu(card):
+    from presto_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig(hash_groupby_min_rows=0)   # the hash tier too
+    before = (B2.INSERT_LAUNCHES.count, B2.LOOKUP_LAUNCHES.count)
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card, config=cfg)
+    got = runner.execute(C.Q3).rows
+    again = runner.execute(C.Q3).rows
+    assert B2.INSERT_LAUNCHES.count > before[0]
+    assert B2.LOOKUP_LAUNCHES.count > before[1]
+    assert got == again                      # the same bits
+    want = LocalQueryRunner.tpch(scale=0.01, device="cpu").execute(
+        C.Q3).rows
+    assert len(got) == len(want) == 10
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(y, float):
+                assert x == pytest.approx(y, rel=1e-9, abs=0.0)
+            else:
+                assert x == y
+
+
+def test_hash_overflow_seam_on_cuda_matches_cpu(card):
+    """A rehash ceiling below the group count: a batch that fails at the
+    top of the ladder leaves none of its keys behind on the card either,
+    so the carried state and the sort tier's merge give the CPU's rows."""
+    from presto_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig(hash_groupby_min_rows=0, hash_groupby_init_slots=256,
+                       hash_groupby_max_slots=1024)
+    sql = ("select l_partkey, sum(l_quantity), count(*) from lineitem "
+           "group by l_partkey")
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card, config=cfg)
+    got = sorted(runner.execute(sql).rows)
+    assert "hash+sort" in {s.kernel_tier
+                           for s in runner._last_task.operator_stats}
+    want = sorted(LocalQueryRunner.tpch(scale=0.01, device="cpu",
+                                        config=cfg).execute(sql).rows)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and g[2] == w[2]
+        assert g[1] == pytest.approx(w[1], rel=1e-9, abs=0.0)

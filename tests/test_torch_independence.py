@@ -31,8 +31,22 @@ class Block(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Block())
+import importlib  # noqa: E402
+import pkgutil  # noqa: E402
+
 import presto_tpu_torch  # noqa: E402
 from presto_tpu_torch.localrunner import LocalQueryRunner  # noqa: E402
+
+# every module of the package, the hash tiers and kernel wrappers included
+names = [m.name for m in pkgutil.walk_packages(presto_tpu_torch.__path__,
+                                               "presto_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in ("presto_tpu_torch.ops.hashtable",
+             "presto_tpu_torch.ops.probe_insert", "presto_tpu_torch.ops.join",
+             "presto_tpu_torch.exec.joinop",
+             "presto_tpu_torch.exec.dynamicfilter"):
+    assert name in names, name
 
 sql = '''
 select l_returnflag, l_linestatus, sum(l_quantity), avg(l_discount),
@@ -42,8 +56,21 @@ where l_shipdate <= date '1998-12-01' - interval '90' day
 group by l_returnflag, l_linestatus
 order by l_returnflag, l_linestatus
 '''
-rows = LocalQueryRunner.tpch(scale=0.01, device="cpu").execute(sql).rows
+runner = LocalQueryRunner.tpch(scale=0.01, device="cpu")
+rows = runner.execute(sql).rows
 assert len(rows) == 4, rows
+q3 = '''
+select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+       o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+  and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15'
+  and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+'''
+assert len(runner.execute(q3).rows) == 10
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("rows", len(rows))

@@ -1,12 +1,16 @@
 """SQL parity: presto_tpu_torch against presto_tpu at TPC-H SF0.01.
 
 The same SQL goes through both packages' LocalQueryRunner (the JAX one
-with its default config; the port on the CPU).  Rows must agree: keys
-and counts exactly, doubles to 1e-9 relative, and row order where the
-SQL has ORDER BY.  The EXPLAIN texts must be equal, and the two TPC-H
-generators must give bit-equal lineitem columns.
+with its default config; the port on the CPU, once with its default
+config and once with the hash tiers forced: ``force_pages_hash`` and
+``hash_groupby_min_rows=0``, the choices the port makes on cuda at
+scale).  Rows must agree: keys and counts exactly, doubles to 1e-9
+relative, and row order where the SQL has ORDER BY.  The EXPLAIN texts
+must be equal, and the two TPC-H generators must give bit-equal lineitem
+columns.
 """
 
+import dataclasses
 import sys
 import os
 
@@ -17,9 +21,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from tpch_queries import QUERIES  # noqa: E402
 
+from presto_tpu.config import EngineConfig as JaxConfig  # noqa: E402
 from presto_tpu.connectors.tpch import TpchConnector as JaxTpch  # noqa: E402
 from presto_tpu.localrunner import LocalQueryRunner as JaxRunner  # noqa: E402
 from presto_tpu_torch.batch import batch_from_arrays  # noqa: E402
+from presto_tpu_torch.config import EngineConfig  # noqa: E402
 from presto_tpu_torch.connectors.tpch import TpchConnector  # noqa: E402
 from presto_tpu_torch.localrunner import LocalQueryRunner  # noqa: E402
 
@@ -36,20 +42,79 @@ group by l_returnflag, l_shipmode
 order by l_returnflag desc, l_shipmode desc
 """
 
+PARTKEY = """
+select l_partkey, sum(l_quantity), count(*), min(l_shipdate),
+       max(l_extendedprice)
+from lineitem group by l_partkey
+"""
+
+# a join on a DOUBLE key: the JAX package takes PagesHash on every backend
+DOUBLE_JOIN = """
+select count(*), sum(l_extendedprice), min(ps_partkey)
+from lineitem, partsupp where l_quantity = ps_supplycost
+"""
+
+LEFT_JOIN = """
+select c_custkey, c_mktsegment, o_orderkey, o_totalprice
+from customer left join orders on c_custkey = o_custkey
+where c_custkey < 40
+order by c_custkey, o_orderkey
+"""
+
+# C4: keys 1e-9 apart, far below a float32 ulp at these magnitudes
+# (~1e-3), stay distinct groups and match only themselves
+SUB_F32_GROUP = """
+select l_orderkey + l_linenumber * 1e-9 as k, count(*), sum(l_quantity)
+from lineitem where l_orderkey < 200
+group by l_orderkey + l_linenumber * 1e-9
+order by k
+"""
+
+SUB_F32_JOIN = """
+select count(*), sum(a.q) from
+  (select l_orderkey + l_linenumber * 1e-9 as k, l_quantity as q
+   from lineitem where l_orderkey < 300) a,
+  (select l_orderkey + l_linenumber * 1e-9 as k2 from lineitem
+   where l_orderkey < 300) b
+where a.k = b.k2
+"""
+
 CASES = {
     "q1": (QUERIES[1], True),
+    "q3": (QUERIES[3], True),
+    "q5": (QUERIES[5], True),
     "q6": (QUERIES[6], True),
+    "q10": (QUERIES[10], True),
     "count": ("select count(*) from lineitem", True),
     "direct_desc": (DIRECT_DESC, True),
     "direct_unordered": ("select l_linestatus, count(*), sum(l_quantity) "
                          "from lineitem group by l_linestatus", False),
+    "partkey": (PARTKEY, False),
+    "double_join": (DOUBLE_JOIN, True),
+    "left_join": (LEFT_JOIN, True),
+    "q13_left_join": (QUERIES[13], True),
+    "sub_f32_group": (SUB_F32_GROUP, True),
+    "sub_f32_join": (SUB_F32_JOIN, True),
 }
+
+# the hash tiers on both sides: GroupByHash from the first row (the JAX
+# package runs it on the CPU too), PagesHash for every join of the port
+HASH_CASES = ("q3", "q5", "q10", "partkey", "double_join", "left_join",
+              "sub_f32_group")
 
 
 @pytest.fixture(scope="module")
 def runners():
     return JaxRunner.tpch(scale=SCALE), LocalQueryRunner.tpch(
         scale=SCALE, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def hash_runners():
+    jax_cfg = dataclasses.replace(JaxConfig(), hash_groupby_min_rows=0)
+    cfg = EngineConfig(force_pages_hash=True, hash_groupby_min_rows=0)
+    return (JaxRunner.tpch(scale=SCALE, config=jax_cfg),
+            LocalQueryRunner.tpch(scale=SCALE, device="cpu", config=cfg))
 
 
 def _assert_rows_equal(got, want, ordered):
@@ -78,7 +143,110 @@ def test_rows_match_jax(runners, name):
     _assert_rows_equal(got.rows, want.rows, ordered)
 
 
-@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("name", HASH_CASES)
+def test_hash_tier_rows_match_jax(hash_runners, name):
+    sql, ordered = CASES[name]
+    jax_runner, torch_runner = hash_runners
+    want = jax_runner.execute(sql)
+    got = torch_runner.execute(sql)
+    tiers = {s.kernel_tier for s in torch_runner._last_task.operator_stats
+             if s.kernel_tier}
+    assert "hash" in tiers
+    _assert_rows_equal(got.rows, want.rows, ordered)
+
+
+def test_hash_overflow_seam_rows_match_jax():
+    """A rehash ceiling below the group count: the first batch fails at
+    the top of the ladder, the state carried so far is merged with the
+    sort tier's, and no group is lost, doubled or made up."""
+    knobs = dict(hash_groupby_min_rows=0, hash_groupby_init_slots=256,
+                 hash_groupby_max_slots=1024)
+    jax_runner = JaxRunner.tpch(
+        scale=SCALE, config=dataclasses.replace(JaxConfig(), **knobs))
+    torch_runner = LocalQueryRunner.tpch(
+        scale=SCALE, device="cpu", config=EngineConfig(**knobs))
+    got = torch_runner.execute(PARTKEY)
+    tiers = {s.kernel_tier for s in torch_runner._last_task.operator_stats
+             if s.kernel_tier}
+    assert "hash+sort" in tiers
+    _assert_rows_equal(got.rows, jax_runner.execute(PARTKEY).rows, False)
+
+
+# each switch of the hash tiers turned off, on both sides: (knobs, query,
+# the operator that must be absent or the tier the port must report)
+SWITCHES_OFF = {
+    "no_dynamic_filter": (dict(dynamic_filtering_enabled=False), "q5",
+                          ("no_operator", "DynamicFilterOperator")),
+    "no_hash_groupby": (dict(hash_groupby_enabled=False,
+                             hash_groupby_min_rows=0), "partkey",
+                        ("tier", "HashAggregationOperator", "sort")),
+    "no_pages_hash": (dict(device_join_probe=False), "q3",
+                      ("tier", "LookupJoinOperator", "sorted")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SWITCHES_OFF))
+def test_switches_off_rows_match_jax(name):
+    knobs, case, check = SWITCHES_OFF[name]
+    sql, ordered = CASES[case]
+    jax_runner = JaxRunner.tpch(
+        scale=SCALE, config=dataclasses.replace(JaxConfig(), **knobs))
+    # force_pages_hash asks for the accelerator's choice; the switch wins
+    torch_runner = LocalQueryRunner.tpch(
+        scale=SCALE, device="cpu",
+        config=EngineConfig(force_pages_hash=True, **knobs))
+    got = torch_runner.execute(sql)
+    stats = torch_runner._last_task.operator_stats
+    if check[0] == "no_operator":
+        assert not [s for s in stats if s.operator.endswith(check[1])]
+    else:
+        tiers = {s.kernel_tier for s in stats
+                 if s.operator.endswith(check[1])}
+        assert tiers == {check[2]}
+    _assert_rows_equal(got.rows, jax_runner.execute(sql).rows, ordered)
+
+
+def test_double_key_join_without_pages_hash_raises():
+    """A DOUBLE key has no integer id: with PagesHash switched off it
+    needs the canonical tier, which the port does not have yet."""
+    runner = LocalQueryRunner.tpch(
+        scale=SCALE, device="cpu",
+        config=EngineConfig(device_join_probe=False))
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        runner.execute(DOUBLE_JOIN)
+
+
+def test_sub_f32_keys_stay_distinct(runners):
+    """C4: the port keys doubles by their exact float64 bits."""
+    rows = runners[1].execute(SUB_F32_GROUP).rows
+    assert len({r[0] for r in rows}) == len(rows) > 100
+    assert all(r[1] == 1 for r in rows)
+    n = runners[1].execute(
+        "select count(*) from lineitem where l_orderkey < 300").rows[0][0]
+    assert runners[1].execute(SUB_F32_JOIN).rows[0][0] == n
+
+
+def test_limit_without_order_by(runners):
+    sql = "select l_orderkey, l_partkey from lineitem limit 7"
+    assert (len(runners[1].execute(sql).rows)
+            == len(runners[0].execute(sql).rows) == 7)
+
+
+def test_limit_releases_blocked_feeders():
+    """A LIMIT satisfied early closes the local exchange: the feed threads,
+    blocked on backpressure with splits left to scan, stop and are
+    joined."""
+    import threading
+
+    cfg = EngineConfig(scan_batch_rows=256)      # many batches per feed
+    runner = LocalQueryRunner.tpch(scale=SCALE, device="cpu", config=cfg)
+    rows = runner.execute("select l_orderkey from lineitem limit 5").rows
+    assert len(rows) == 5
+    assert not [t.name for t in threading.enumerate()
+                if ".feed" in t.name and t.is_alive()]
+
+
+@pytest.mark.parametrize("q", [1, 6, 3])
 def test_explain_text_equal(runners, q):
     jax_runner, torch_runner = runners
     assert torch_runner.explain(QUERIES[q]) == jax_runner.explain(QUERIES[q])
@@ -131,9 +299,10 @@ def test_batch_from_arrays_carries_jax_batches():
 
 
 @pytest.mark.parametrize("sql", [
-    "select count(*) from lineitem, orders where l_orderkey = o_orderkey",
-    "select l_orderkey, count(*) from lineitem group by l_orderkey",
-    "select l_orderkey from lineitem order by l_orderkey limit 3",
+    "select count(*) from orders where o_orderkey in "
+    "(select l_orderkey from lineitem)",
+    "select count(*) from nation, region",
+    "select n_name, row_number() over (order by n_name) from nation",
     "show tables",
 ])
 def test_unported_shapes_raise(runners, sql):

@@ -1,6 +1,6 @@
 """Where a query's time goes in presto_tpu_torch on a CUDA card.
 
-    python3 tools/torch_profile.py [--scale 1.0] [--query q1|q6 ...]
+    python3 tools/torch_profile.py [--scale 1.0] [--query q1|q6|q3|partkey ...]
 
 For each query: one cold run, then one warm run under torch.profiler
 (CPU + CUDA activities).  Prints one JSON line per query with
@@ -30,7 +30,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import Q1, Q6, card_line  # noqa: E402
+from chip_smoke import PARTKEY, Q1, Q3, Q6, card_line  # noqa: E402
 
 
 def _busy_seconds(events) -> float:
@@ -52,7 +52,8 @@ def _busy_seconds(events) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
-    ap.add_argument("--query", action="append", choices=["q1", "q6"])
+    ap.add_argument("--query", action="append",
+                    choices=["q1", "q6", "q3", "partkey"])
     args = ap.parse_args()
 
     import torch
@@ -75,7 +76,7 @@ def main() -> int:
     runner = LocalQueryRunner.tpch(scale=args.scale)
     done = Completed()
     runner.event_bus.register(done)
-    sql = {"q1": Q1, "q6": Q6}
+    sql = {"q1": Q1, "q6": Q6, "q3": Q3, "partkey": PARTKEY}
     for label in args.query or ["q1", "q6"]:
         runner.execute(sql[label])                      # cold
         torch.cuda.synchronize()
