@@ -16,10 +16,20 @@ Phases (any failure exits non-zero; nothing is caught):
      bit-identical on a repeat;
    - B2 (probe-insert and lookup): the same group partition as the plain
      claim loop (same key -> same slot, distinct keys -> distinct slots),
-     the same found flags and the same ``ok``, on every repeat (slot ids
-     may differ: atomics decide who wins a contended slot), at Q3's join
-     build and probe, a GroupByHash batch into a small and a large table,
-     a collision storm and a full table;
+     the same found flags, the same ``ok`` and as many claimed slots, on
+     every repeat (slot ids may differ: atomics decide who wins a
+     contended slot); the insert's journal is the slots it filled and
+     undoes the batch; the fused lookup's (lo, cnt) equal their plain
+     version.  Eight shapes: Q3's join build and probe, a GroupByHash
+     batch into a small and a large table, a collision storm, a full
+     table, SF10 partkey's last rung (2^22 slots, above the L2) and a
+     GROUP BY batch with Q3's shape, the batch sizes and table loads
+     taken from phase 3's ``b2_rows``.  B2's times, the lookup's of the
+     (lo, cnt) mode the PagesHash probe runs: ``kernel_ms``, the
+     device time of one launch from a CUDA graph of launches, and
+     ``wrapper_ms``, the wrapper's call as the tiers make it (CUDA events
+     around it, host included), with ``library_device_ms`` beside
+     ``library_ms`` where the library call can be captured;
    - the float group sums of the direct (above B1's 32 groups), sort and
      hash tiers: bit-identical on a repeat;
 3. SQL on the card, through ``presto_tpu_torch.localrunner.
@@ -34,13 +44,15 @@ Phases (any failure exits non-zero; nothing is caught):
      took PagesHash, as Q3's customer build does up to SF4; the GROUP BY
      on the hash tier from SF10) and the hash-tier GROUP BY ``l_partkey``
      (B2 launched in insert mode); for both, the join and aggregation
-     inputs on cuda and two runs give the same bits.  Each path's counts
-     are printed on their own (``b2_launches``); the kernels line's
-     ``launches`` is Q3's (Q1's for B1), with every path's count beside
-     it under ``launches_by_path``.
+     inputs on cuda and every run gives the same bits.  Each path's
+     counts are printed on their own (``b2_launches``); the kernels
+     line's ``launches`` is Q3's (Q1's for B1), with every path's count
+     beside it under ``launches_by_path``.  One more run of each, which
+     no wall reads, records the rows of its B2 launches (``b2_rows``:
+     mean, min and max of batch and live rows, and the table sizes).
 
-Phase 2 calls the wrappers the hash tiers call (``B2.insert``,
-``B2.lookup``) for its checks and times the kernel launch alone.
+Phase 2 calls the wrappers the hash tiers call (``B2.insert_claims``,
+``B2.lookup``, ``B2.lookup_ranges``) for its checks.
 
 The last lines are the kernels line ``{"kernels": [...]}``, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -62,6 +74,20 @@ FP64_OPS_PER_S = 34e12
 INT_OPS_PER_S = 67e12
 L2_BYTES = 50e6
 SECTOR = 32
+
+# Q3's GROUP BY batch at SF10 as phase 3 of `python3 chip_smoke.py
+# --scale 10` saw it (b2_rows, the q3 path's 933 insert launches): rows per
+# batch and live rows (the mean; 36 to 65,601, every row live), and the
+# table's slots (the most common).  The aggregation rehashes past half
+# fill, so a 262,144-slot table holds 65,537 to 131,072 groups: the batch
+# meets it at the middle of that range
+Q3_GROUPBY_ROWS = 456
+Q3_GROUPBY_LIVE = 456
+Q3_GROUPBY_CAP = 262_144
+Q3_GROUPBY_HELD = 98_304
+# Q3's PagesHash probe at SF1 (b2_rows of `python3 chip_smoke.py`, the q3
+# path's 32 lookups): o_custkey rows per batch, the mean (13,542 to 32,052)
+Q3_PROBE_ROWS = 22_791
 
 Q1 = """
 select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
@@ -153,6 +179,47 @@ def cuda_ms_each(setup, fn, iters: int, warmup: int = 2) -> float:
     return total / iters
 
 
+def graph_ms(step, iters: int, reset=None, replays: int = 3) -> float:
+    """Device time of one ``step``: ``iters`` steps, each after ``reset``,
+    captured in one CUDA graph and replayed between two CUDA events, less
+    the same graph of the resets alone.  No host work between launches
+    reaches the number (``cuda_ms`` and ``cuda_ms_each`` time the calls,
+    host included)."""
+    import torch
+
+    def capture(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()               # lazy set-up and the allocator, uncaptured
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                body()
+        return graph
+
+    def replay_ms(graph) -> float:
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / (replays * iters)
+
+    if reset is None:
+        return replay_ms(capture(step))
+
+    def both():
+        reset()
+        step()
+    return replay_ms(capture(both)) - replay_ms(capture(reset))
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -224,61 +291,206 @@ def _check_partition(keys, slot, placed, cap: int, label: str) -> int:
     return int(uniq.shape[0])
 
 
-def check_probe_insert(label: str, keys, live, cap: int,
-                       iters: int = 20) -> dict:
+def b2_shapes(seed: int):
+    """B2's phase-2 shapes: the main path's at SF1 (Q3's join build and
+    probe, a GroupByHash batch into the first and a late rung of SF1
+    partkey's ladder), the hard cases (a collision storm, a full table),
+    SF10 partkey's last rung above the L2 and a GROUP BY batch with Q3's
+    shape.  Each is a dict: ``label``, ``mode`` (insert or lookup), the
+    int64 ``keys`` ``[n, k]``, ``live`` (None: every row), ``cap``, and
+    ``prefill`` (keys in the table before the batch, or None); a lookup
+    also has ``build``, the keys of its table."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int64)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.int64, device="cuda")
+
+    # Q3's PagesHash build at SF1: ~30k distinct BIGINT customer keys
+    # (c_custkey of the BUILDING segment) into 2 x its 32,768-row
+    # capacity, probed by a batch of o_custkey of the path's mean size
+    cust = torch.randperm(150_000, generator=gen, device="cuda")[:30_000]
+    build = (cust + 1).to(torch.int64)[:, None].contiguous()
+    probe = randint(1, 150_001, (Q3_PROBE_ROWS, 1))
+    # a GroupByHash batch: 65,536 rows of (l_partkey, null flag) words
+    part = torch.stack([randint(1, 200_001, (65_536,)), zeros(65_536)], 1)
+    # the collision storm of tests/test_pallas.py: 2,048 rows, 700 keys
+    storm = randint(0, 700, (2_048, 1))
+    live_storm = torch.ones(2_048, dtype=torch.bool, device="cuda")
+    # a full table: 1,000 distinct keys, 64 slots
+    full = torch.arange(1_000, dtype=torch.int64, device="cuda")[:, None]
+    # SF10 partkey's last rung (2^22 slots, 84 MB: above the L2): the
+    # table holds 2,000,000 distinct keys (load 0.48) and a 65,536-row
+    # batch draws from a domain 5 % larger, so most rows find their key
+    # and some claim a slot
+    domain = 2_100_000
+    held = torch.randperm(domain, generator=gen, device="cuda")[:2_000_000]
+    big_fill = torch.stack([held.to(torch.int64) + 1, zeros(2_000_000)], 1)
+    big = torch.stack([randint(1, domain + 1, (65_536,)), zeros(65_536)], 1)
+    # Q3's GROUP BY batch at SF10 (l_orderkey, o_orderdate,
+    # o_shippriority), each key with its null-flag word as groupby_update
+    # keys it: Q3_GROUPBY_LIVE live rows of a Q3_GROUPBY_ROWS-row batch,
+    # lineitem's order, so about 4 consecutive rows share an l_orderkey,
+    # into a table holding the Q3_GROUPBY_HELD groups of earlier batches
+    # (lower order keys)
+    def q3_keys(okey):
+        out = zeros((okey.shape[0], 6))
+        out[:, 0] = okey
+        out[:, 2] = 8_036 + okey * 2_654_435_761 % 2_406  # 1992-01-01 + ...
+        return out
+
+    n_ord = -(-Q3_GROUPBY_LIVE // 4)
+    okey = torch.sort(randint(30_000_001, 60_000_001, (n_ord,))).values
+    q3k = zeros((Q3_GROUPBY_ROWS, 6))
+    q3k[:Q3_GROUPBY_LIVE] = q3_keys(
+        okey.repeat_interleave(4)[:Q3_GROUPBY_LIVE])
+    q3_live = torch.arange(Q3_GROUPBY_ROWS, device="cuda") < Q3_GROUPBY_LIVE
+    q3_held = torch.randperm(30_000_000, generator=gen,
+                             device="cuda")[:Q3_GROUPBY_HELD] + 1
+    q3_fill = q3_keys(q3_held.to(torch.int64))
+    return [
+        dict(label="q3_join_build", mode="insert", keys=build, live=None,
+             cap=65_536, prefill=None),
+        dict(label="groupby_batch_8192", mode="insert", keys=part,
+             live=None, cap=8_192, prefill=None),
+        dict(label="groupby_batch_524288", mode="insert", keys=part,
+             live=None, cap=524_288, prefill=None),
+        dict(label="collision_storm", mode="insert", keys=storm,
+             live=live_storm, cap=2_048, prefill=None),
+        dict(label="full_table", mode="insert", keys=full, live=None,
+             cap=64, prefill=None),
+        dict(label="groupby_batch_4194304", mode="insert", keys=big,
+             live=None, cap=1 << 22, prefill=big_fill),
+        dict(label="q3_groupby_batch", mode="insert", keys=q3k,
+             live=q3_live, cap=Q3_GROUPBY_CAP, prefill=q3_fill),
+        dict(label="q3_join_probe", mode="lookup", keys=probe, live=None,
+             cap=65_536, build=build),
+    ]
+
+
+def b2_table(shape):
+    """The table a shape's batch goes into: empty, or holding its
+    ``prefill`` (inserted by the kernel).  Returns (t_words, t_ctrl)."""
+    from presto_tpu_torch.ops import hashtable as H
+    from presto_tpu_torch.ops import probe_insert as B2
+
+    keys = shape["build"] if shape["mode"] == "lookup" else shape["prefill"]
+    tw, tc = H.empty_table(shape["cap"], shape["keys"].shape[1], "cuda")
+    if keys is not None:
+        _slot, ok = B2.insert(keys, None, tw, tc)
+        if not ok:
+            raise AssertionError(f"{shape['label']}: the table's keys did "
+                                 "not fit")
+    return tw, tc
+
+
+def l2_flush():
+    """A step that evicts the 50 MB L2 (writes 128 MB)."""
+    import torch
+
+    junk = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    return junk.zero_
+
+
+def b2_reset(shape, tw, tc):
+    """A step that puts (tw, tc) back as ``b2_table`` left them, and
+    flushes the L2 when the table is larger than it (the caller meets
+    such a table cold: its previous batch touched a few MB of it)."""
+    if shape["prefill"] is None:
+        steps = [tw.zero_, tc.zero_]
+    else:
+        tw0, tc0 = tw.clone(), tc.clone()
+        steps = [lambda: tw.copy_(tw0), lambda: tc.copy_(tc0)]
+    if tc.shape[0] * (4 + 8 * tw.shape[1]) > L2_BYTES:
+        steps.append(l2_flush())
+
+    def reset():
+        for step in steps:
+            step()
+    return reset
+
+
+def check_probe_insert(shape, iters: int = 20) -> dict:
     """B2 insert at one shape, through the wrapper the hash tiers call
-    (``B2.insert``: its input checks and its read of ``ok``): the
-    kernel's partition and ``ok`` against the plain claim loop's, twice,
-    and times of the kernel launch alone.  ``live`` None = all rows."""
+    (``B2.insert_claims``: its input checks and its one read of the
+    status word), twice from the same table: the partition, ``ok``, the
+    claimed slots against the plain claim loop's, and the journal undoes
+    the batch.  Then the times: ``kernel_ms`` (device time of one launch,
+    from a CUDA graph), ``wrapper_ms`` (the wrapper's call, CUDA events),
+    the claim loop and ``torch.unique``."""
     import torch
 
     from presto_tpu_torch.ops import hashtable as H
     from presto_tpu_torch.ops import probe_insert as B2
 
+    label, keys, live, cap = (shape["label"], shape["keys"], shape["live"],
+                              shape["cap"])
     n, k = keys.shape
-    tw, tc = H.empty_table(cap, k, "cuda")
+    tw, tc = b2_table(shape)
+    tw0, tc0 = tw.clone(), tc.clone()
     live_all = (torch.ones(n, dtype=torch.bool, device="cuda")
                 if live is None else live)
     oks = []
     for _ in range(2):
-        tw.zero_()
-        tc.zero_()
-        slot, ok = B2.insert(keys, live, tw, tc)
+        tw.copy_(tw0)
+        tc.copy_(tc0)
+        slot, ok, n_claimed, journal = B2.insert_claims(keys, live, tw,
+                                                        tc)
+        claimed = journal[journal >= 0]
+        if claimed.shape[0] != n_claimed:
+            raise AssertionError(f"{label}: {n_claimed} claimed, "
+                                 f"{claimed.shape[0]} in the journal")
         if bool((slot[~live_all] != cap).any()):
             raise AssertionError(f"{label}: a dead row got a slot")
         placed = live_all & (slot != cap)
         if ok and not bool(placed.eq(live_all).all()):
             raise AssertionError(f"{label}: ok but a live row unplaced")
-        n_keys = _check_partition(keys, slot, placed, cap, label)
-        if int(H.used_slots(tc).sum()) != n_keys:
-            raise AssertionError(f"{label}: used slots != placed keys")
+        _check_partition(keys, slot, placed, cap, label)
+        if not torch.equal(tw[slot[placed].long()], keys[placed]):
+            raise AssertionError(f"{label}: a row's slot holds another key")
+        new = torch.nonzero((tc0 == H.EMPTY) & (tc != H.EMPTY)).squeeze(1)
+        if not torch.equal(torch.sort(claimed.long()).values, new):
+            raise AssertionError(f"{label}: the journal is not the slots "
+                                 "the batch filled")
+        tc[claimed.long()] = H.EMPTY
+        if not torch.equal(tc, tc0):
+            raise AssertionError(f"{label}: the journal did not undo the "
+                                 "batch")
         oks.append(ok)
-    pw, pc = H.empty_table(cap, k, "cuda")
+    pw, pc = tw0.clone(), tc0.clone()
     pslot, pok = H.probe_insert(keys, live_all, pw, pc)
     if pok:
         _check_partition(keys, pslot, live_all, cap, label + " plain")
+        plain_new = int(((tc0 == H.EMPTY) & (pc != H.EMPTY)).sum())
+        if plain_new != claimed.shape[0]:
+            raise AssertionError(f"{label}: {claimed.shape[0]} keys claimed "
+                                 f"(kernel) != {plain_new} (plain)")
     if oks != [pok, pok]:
         raise AssertionError(f"{label}: ok {oks} (kernel) != {pok} (plain)")
+    groups = int(claimed.shape[0])
 
-    def reset():
-        tw.zero_()
-        tc.zero_()
-
-    def reset_plain():
-        pw.zero_()
-        pc.zero_()
-
-    ms = cuda_ms_each(reset, lambda: B2.launch_insert(keys, live, tw, tc),
-                      iters)
+    tw.copy_(tw0)
+    pw.copy_(tw0)
+    pc.copy_(tc0)
+    reset = b2_reset(shape, tw, tc)
+    kernel_ms = graph_ms(lambda: B2.launch_insert(keys, live, tw, tc),
+                         iters, reset)
+    wrapper_ms = cuda_ms_each(
+        reset, lambda: B2.insert_claims(keys, live, tw, tc), iters)
     plain_ms = cuda_ms_each(
-        reset_plain, lambda: H.probe_insert(keys, live_all, pw, pc),
+        b2_reset(shape, pw, pc), lambda: H.probe_insert(keys, live_all, pw,
+                                                        pc),
         max(2, iters // 10), warmup=1)
     lk = keys[live_all]
     library_ms = cuda_ms(
         lambda: torch.unique(lk if k > 1 else lk[:, 0], dim=0 if k > 1
                              else None, return_inverse=True), iters)
     n_live = int(live_all.sum())
-    groups = int(H.used_slots(tc).sum())
     table_bytes = cap * (4 + 8 * k)
     nbytes = (n * (8 * k + 4 + (0 if live is None else 1))
               + min(table_bytes, n_live * 2 * SECTOR)
@@ -286,29 +498,35 @@ def check_probe_insert(label: str, keys, live, cap: int,
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = _hash_ops(n_live, k) / INT_OPS_PER_S * 1e3
     return {"shape": label, "n": n, "k": k, "cap": cap, "live": n_live,
-            "groups": groups, "ok": pok, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "prefilled": 0 if shape["prefill"] is None
+            else int(shape["prefill"].shape[0]),
+            "groups": groups, "ok": pok, "max_abs_err": 0.0,
+            "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": None,
             "library": "torch.unique(return_inverse=True)",
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def check_probe_lookup(label: str, build, probe, cap: int,
-                       iters: int = 20) -> dict:
-    """B2 lookup at one shape, through the wrapper the PagesHash probe
-    calls (``B2.lookup``): the kernel's found flags and slots against the
-    plain walk over the same table and against the true membership, twice,
-    and times of the kernel launch alone."""
+def check_probe_lookup(shape, iters: int = 20) -> dict:
+    """B2 lookup at one shape: the kernel's found flags and slots (through
+    ``B2.lookup``, a check of the partition only) against the plain walk
+    over the same table and against the true membership, twice, and the
+    ranges (through ``B2.lookup_ranges``, the one mode the PagesHash probe
+    calls) equal to their plain version.  Times, all of the ranges mode:
+    ``kernel_ms`` (one (lo, cnt) launch, from a CUDA graph), ``wrapper_ms``
+    (the ``lookup_ranges`` call, CUDA events), the plain version, and
+    ``torch.searchsorted`` by events and from a graph."""
     import torch
 
     from presto_tpu_torch.ops import hashtable as H
     from presto_tpu_torch.ops import probe_insert as B2
 
+    label, probe, build, cap = (shape["label"], shape["keys"],
+                                shape["build"], shape["cap"])
     n, k = probe.shape
-    tw, tc = H.empty_table(cap, k, "cuda")
-    _slot, ok = B2.insert(build, None, tw, tc)
-    if not ok:
-        raise AssertionError(f"{label}: the build did not fit")
+    tw, tc = b2_table(shape)
     live = torch.ones(n, dtype=torch.bool, device="cuda")
     slot, found = B2.lookup(probe, live, tw, tc)
     slot2, found2 = B2.lookup(probe, live, tw, tc)
@@ -322,60 +540,60 @@ def check_probe_lookup(label: str, build, probe, cap: int,
     if not (torch.equal(slot[found], pslot[found])
             and torch.equal(slot, slot2)):
         raise AssertionError(f"{label}: found slots differ from plain")
-    ms = cuda_ms(lambda: B2.launch_lookup(probe, live, tw, tc), iters)
-    plain_ms = cuda_ms(lambda: H.probe_find(probe, live, tw, tc),
-                       max(2, iters // 10), warmup=1)
+    # PagesHash ranges over the table: 1 to 4 build rows per key
+    gen = torch.Generator(device="cuda").manual_seed(cap)
+    counts = torch.where(
+        tc != H.EMPTY, torch.randint(1, 5, (cap,), generator=gen,
+                                     device="cuda", dtype=torch.int32), 0)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    got = B2.lookup_ranges(probe, live, tw, tc, starts, counts)
+    want = B2.lookup_ranges_reference(probe, live, tw, tc, starts, counts)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{label}: fused ranges differ from plain")
+    kernel_ms = graph_ms(lambda: B2.launch_lookup(probe, live, tw, tc,
+                                                  starts, counts), iters)
+    wrapper_ms = cuda_ms(
+        lambda: B2.lookup_ranges(probe, live, tw, tc, starts, counts), iters)
+    plain_ms = cuda_ms(
+        lambda: B2.lookup_ranges_reference(probe, live, tw, tc, starts,
+                                           counts), max(2, iters // 10),
+        warmup=1)
     sorted_build = torch.sort(build[:, 0]).values
-    library_ms = cuda_ms(
-        lambda: torch.searchsorted(sorted_build, probe[:, 0]), iters)
+    keys0 = probe[:, 0].contiguous()
+    library_ms = cuda_ms(lambda: torch.searchsorted(sorted_build, keys0),
+                         iters)
+    library_device_ms = graph_ms(
+        lambda: torch.searchsorted(sorted_build, keys0), iters)
+    # keys and live in, (lo, cnt) out, the starts and counts of the slots
+    # the found rows gather, and the table's sectors
     table_bytes = cap * (4 + 8 * k)
-    nbytes = n * (8 * k + 1 + 4 + 1) + min(table_bytes, n * 2 * SECTOR)
+    gathered = int(torch.unique(slot[found]).numel())
+    nbytes = (n * (8 * k + 1 + 16) + gathered * 8
+              + min(table_bytes, n * 2 * SECTOR))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = _hash_ops(n, k) / INT_OPS_PER_S * 1e3
     return {"shape": label, "n": n, "k": k, "cap": cap,
             "build": int(build.shape[0]), "found": int(found.sum()),
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "max_abs_err": 0.0, "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "library": "torch.searchsorted(sorted build keys)",
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def b2_checks(seed: int):
-    """B2 at the main path's shapes (SF1) and at the hard cases."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def randint(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
-                             dtype=torch.int64)
-
-    # Q3's PagesHash build at SF1: ~30k distinct BIGINT customer keys
-    # (c_custkey of the BUILDING segment) into 2 x its 32,768-row
-    # capacity, probed by one 65,536-row batch of o_custkey
-    cust = torch.randperm(150_000, generator=gen, device="cuda")[:30_000]
-    build = (cust + 1).to(torch.int64)[:, None].contiguous()
-    probe = randint(1, 150_001, (65_536, 1))
-    # a GroupByHash batch: 65,536 rows of (l_partkey, null flag) words
-    part = torch.stack([randint(1, 200_001, (65_536,)),
-                        torch.zeros(65_536, dtype=torch.int64,
-                                    device="cuda")], 1)
-    # the collision storm of tests/test_pallas.py: 2,048 rows, 700 keys
-    storm = randint(0, 700, (2_048, 1))
-    live_storm = torch.ones(2_048, dtype=torch.bool, device="cuda")
-    # a full table: 1,000 distinct keys, 64 slots
-    full = torch.arange(1_000, dtype=torch.int64, device="cuda")[:, None]
-    inserts = [
-        check_probe_insert("q3_join_build", build, None, 65_536),
-        check_probe_insert("groupby_batch_8192", part, None, 8_192),
-        check_probe_insert("groupby_batch_524288", part, None, 524_288),
-        check_probe_insert("collision_storm", storm, live_storm, 2_048),
-        check_probe_insert("full_table", full, None, 64),
-    ]
-    if inserts[-1]["ok"]:
-        raise AssertionError("full table: ok must be False")
-    lookups = [check_probe_lookup("q3_join_probe", build, probe, 65_536)]
+    """B2 at every phase-2 shape: (insert rows, lookup rows)."""
+    inserts, lookups = [], []
+    for shape in b2_shapes(seed):
+        if shape["mode"] == "insert":
+            inserts.append(check_probe_insert(shape))
+        else:
+            lookups.append(check_probe_lookup(shape))
+    if [c["ok"] for c in inserts] != [True, False, True, True, False, True,
+                                      True]:
+        raise AssertionError(f"B2 ok flags {[c['ok'] for c in inserts]}")
     return inserts, lookups
 
 
@@ -598,6 +816,57 @@ class DeviceSpy:
         self.seen = []
 
 
+class B2Rows:
+    """Records the rows of every B2 launch of a run (batch rows, live rows,
+    table slots) by wrapping the wrappers the hash tiers call; live counts
+    stay on the card until ``take`` reads them."""
+
+    def __init__(self):
+        self.calls = []
+        self._undo = []
+
+    def wrap(self, module, name: str, mode: str) -> None:
+        import torch
+
+        real = getattr(module, name)
+
+        def spy(keys, live, t_words, t_ctrl, *rest):
+            if keys.is_cuda and keys.shape[0] > 0:
+                self.calls.append((mode, keys.shape[0], keys.shape[0]
+                                   if live is None
+                                   else torch.count_nonzero(live),
+                                   t_ctrl.shape[0]))
+            return real(keys, live, t_words, t_ctrl, *rest)
+
+        setattr(module, name, spy)
+        self._undo.append((module, name, real))
+
+    def restore(self) -> None:
+        for module, name, real in reversed(self._undo):
+            setattr(module, name, real)
+        self._undo = []
+
+    def take(self) -> dict:
+        """Per mode: launches, and the mean, min and max of the batch rows
+        and the live rows, and the table sizes with their launch counts;
+        then forget the calls."""
+        out = {}
+        for mode in sorted({c[0] for c in self.calls}):
+            calls = [c for c in self.calls if c[0] == mode]
+            rows = [c[1] for c in calls]
+            live = [int(c[2]) for c in calls]
+            caps = {}
+            for c in calls:
+                caps[c[3]] = caps.get(c[3], 0) + 1
+            out[mode] = {
+                "launches": len(calls),
+                "rows": [sum(rows) / len(rows), min(rows), max(rows)],
+                "live": [sum(live) / len(live), min(live), max(live)],
+                "caps": {str(c): m for c, m in sorted(caps.items())}}
+        self.calls = []
+        return out
+
+
 def timed(runner, sql: str):
     import torch
 
@@ -757,6 +1026,20 @@ def main() -> int:
     for label in ("q1", "q6", "q3", "partkey"):
         for _ in range(2):
             run(label)
+    # the rows of each B2 launch, from one more run of each path that no
+    # wall reads (the recorder's live counts are launches of their own)
+    b2_rows = B2Rows()
+    b2_rows.wrap(B2, "insert_claims", "insert")
+    b2_rows.wrap(B2, "lookup_ranges", "lookup")
+    b2_shape = {}
+    for label in ("q3", "partkey"):
+        res = runner.execute(sqls[label])
+        rows = sorted(res.rows) if label in key_sorted else res.rows
+        rows_match(rows, want[label], label)
+        results[label].append(rows)
+        b2_shape[label] = b2_rows.take()
+    b2_rows.restore()
+    print("b2_rows " + json.dumps(b2_shape), flush=True)
     for label in ("q3", "partkey"):
         # C2: the same bits on every run, whatever slot ids B2 handed out
         first = results[label][0]
@@ -772,14 +1055,21 @@ def main() -> int:
     def entry(name, source, replaces, launches, c):
         """``launches``: {path: count of that path's own run}; the key
         ``launches`` is the count on this slice's main path (Q3), or Q1's
-        for B1."""
+        for B1.  B2's ``ms`` is ``kernel_ms``, its device time from a CUDA
+        graph (the lookup's in the (lo, cnt) mode the path runs), with
+        ``wrapper_ms`` (the call) and ``library_device_ms`` beside it."""
         main = launches.get("q3", launches.get("q1"))
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": main,
-                "launches_by_path": launches,
-                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": main,
+               "launches_by_path": launches,
+               "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+               "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+               "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+        for key in ("shape", "kernel_ms", "wrapper_ms",
+                    "library_device_ms"):
+            if key in c:
+                out[key] = c[key]
+        return out
 
     kernels = [
         entry("direct_segment_sums",

@@ -35,9 +35,10 @@ in row order (``ops/groupby.py sorted_segment_sums``).
 
 Tables are updated in place (the JAX package returns new arrays).  When an
 insert reports ``ok=False`` some keys of that batch may already be
-installed; ``groupby_update`` then puts the control words back as they
-were before the batch, so a failed update leaves the state exactly as the
-JAX package's caller keeps it (its old state), and nothing is accumulated.
+installed; ``groupby_update`` then sets exactly the slots the insert
+claimed (its journal) back to empty, so a failed update leaves the state
+as the JAX package's caller keeps it (its old state), and nothing is
+accumulated.
 
 The hash is computed in int64: torch has no ``>>`` or ``<`` for uint64,
 so logical right shifts are masked arithmetic shifts and the wrapping
@@ -207,12 +208,14 @@ def probe_find(keys: torch.Tensor, live: torch.Tensor,
 # ---------------------------------------------------------------------------
 # GroupByHash: device-resident grouped-aggregation state
 # ---------------------------------------------------------------------------
-# State: (t_words, t_ctrl, keyvals, aggs)
-#   keyvals: per key COLUMN, (values, valid|None) in the input dtype — the
-#            representative values extract() emits (input batches are not
-#            retained)
-#   aggs:    per aggregation, (acc, nonnull_count) in the accumulation
-#            dtypes the sort tier uses
+# State: (t_words, t_ctrl, keyvals, aggs, n_groups)
+#   keyvals:  per key COLUMN, (values, valid|None) in the input dtype — the
+#             representative values extract() emits (input batches are not
+#             retained)
+#   aggs:     per aggregation, (acc, nonnull_count) in the accumulation
+#             dtypes the sort tier uses
+#   n_groups: the occupied slots, a host int kept from the inserts' claim
+#             counts (so an update reads no table to count them)
 
 def groupby_init(cap: int, n_words: int, key_dtypes: Sequence[torch.dtype],
                  key_nullable: Sequence[bool],
@@ -243,7 +246,7 @@ def groupby_init(cap: int, n_words: int, key_dtypes: Sequence[torch.dtype],
                                     device=device), nn))
         else:
             raise ValueError(f"unknown aggregation primitive {prim}")
-    return t_words, t_ctrl, tuple(keyvals), tuple(aggs)
+    return t_words, t_ctrl, tuple(keyvals), tuple(aggs), 0
 
 
 def groupby_update(state, key_columns, agg_ins, num_rows: int,
@@ -262,7 +265,7 @@ def groupby_update(state, key_columns, agg_ins, num_rows: int,
     (``sorted_segment_sums``), so the sums are the same bits on every run
     whatever slot ids the kernel hands out.
     """
-    t_words, t_ctrl, keyvals, aggs = state
+    t_words, t_ctrl, keyvals, aggs, n_groups = state
     cap_rows = key_columns[0][0].shape[0]
     device = key_columns[0][0].device
     live = torch.arange(cap_rows, device=device) < num_rows
@@ -281,13 +284,14 @@ def groupby_update(state, key_columns, agg_ins, num_rows: int,
             kw.append((~vm).to(torch.int64))
         else:
             kw.append(w)
-    ctrl_before = t_ctrl.clone()
-    slot, ok = B2.insert(_stack(kw), live, t_words, t_ctrl)
+    slot, ok, n_new, journal = B2.insert_claims(_stack(kw), live, t_words,
+                                                t_ctrl)
     if not ok:
-        # slots whose control word is EMPTY again are free whatever their
-        # stale key words hold
-        t_ctrl.copy_(ctrl_before)
-        return state, int(used_slots(t_ctrl).sum()), False
+        # take the batch's keys out again: a slot whose control word is
+        # EMPTY is free whatever its stale key words hold
+        t_ctrl[journal[journal >= 0].to(torch.int64)] = EMPTY
+        return state, n_groups, False
+    n_groups += n_new
     slot = slot.to(torch.int64)
     rows = torch.nonzero(live).squeeze(1)
     srows = slot[rows]
@@ -314,7 +318,7 @@ def groupby_update(state, key_columns, agg_ins, num_rows: int,
             scatter_extreme_(acc, s, values[r], prim)
         else:
             raise ValueError(f"unknown aggregation primitive {prim}")
-    return state, int(used_slots(t_ctrl).sum()), True
+    return (t_words, t_ctrl, keyvals, aggs, n_groups), n_groups, True
 
 
 def groupby_rehash(state, new_cap: int, prims: Sequence[str] = ()):
@@ -325,7 +329,7 @@ def groupby_rehash(state, new_cap: int, prims: Sequence[str] = ()):
     ``prims`` names each aggregation's primitive: slots not carried start
     at the prim's identity (min -> +inf, max -> -inf), or a group first
     installed after the rehash would fold a stale zero into its min/max."""
-    t_words, t_ctrl, keyvals, aggs = state
+    t_words, t_ctrl, keyvals, aggs, _n_groups = state
     device = t_words.device
     if not prims:
         prims = ["sum"] * len(aggs)
@@ -334,7 +338,7 @@ def groupby_rehash(state, new_cap: int, prims: Sequence[str] = ()):
     agg_specs = [(prim, acc.dtype) for prim, (acc, _nn) in zip(prims, aggs)]
     new = groupby_init(new_cap, t_words.shape[1], key_dtypes, key_nullable,
                        agg_specs, device)
-    nwords, nctrl, nkeyvals, naggs = new
+    nwords, nctrl, nkeyvals, naggs, _zero = new
     old = torch.nonzero(used_slots(t_ctrl)).squeeze(1)
     keys = t_words[old]
     slot, ok = B2.insert(keys, torch.ones(old.shape[0], dtype=torch.bool,
@@ -349,7 +353,7 @@ def groupby_rehash(state, new_cap: int, prims: Sequence[str] = ()):
     for (acc, nn), (nacc, nnn) in zip(aggs, naggs):
         nacc[s] = acc[old]
         nnn[s] = nn[old]
-    return new, True
+    return (nwords, nctrl, nkeyvals, naggs, int(old.shape[0])), True
 
 
 def groupby_extract(state):
@@ -359,7 +363,7 @@ def groupby_extract(state):
     (values, valid|None) pairs and ``agg_outs`` (acc, nonnull_count)
     pairs, each ``[n_groups]`` — the (values, cnt) contract of the sort
     tier, so callers share the output-building code."""
-    t_words, t_ctrl, keyvals, aggs = state
+    t_words, t_ctrl, keyvals, aggs, _n_groups = state
     idx = torch.nonzero(used_slots(t_ctrl)).squeeze(1)
     key_outs = [(kv[idx], None if kvalid is None else kvalid[idx])
                 for kv, kvalid in keyvals]
@@ -419,9 +423,6 @@ def pages_hash_probe(table, probe_key_columns, num_rows: int):
     in_row = torch.arange(cap_p, device=device) < num_rows
     kw, null_row = normalize_keys(probe_key_columns, nulls_equal=False)
     live = in_row if null_row is None else (in_row & ~null_row)
-    slot, found = B2.lookup(_stack(kw), live, t_words, t_ctrl)
-    hit = live & found
-    s = torch.where(hit, slot.to(torch.int64), 0)
-    lo = torch.where(hit, starts[s].to(torch.int64), 0)
-    cnt = torch.where(hit, counts_t[s].to(torch.int64), 0)
+    lo, cnt = B2.lookup_ranges(_stack(kw), live, t_words, t_ctrl, starts,
+                               counts_t)
     return lo, cnt, live

@@ -81,14 +81,111 @@ def test_q1_on_cuda_matches_cpu(card):
 def test_probe_insert_and_lookup_match_claim_loop(card):
     """B2 at the chip_smoke shapes (Q3's join build and probe at SF1, a
     GroupByHash batch into a small and a large table, the collision
-    storm, a full table): the claim loop's partition, found flags and
-    ok, on every repeat."""
+    storm, a full table, SF10 partkey's last rung above the L2, a GROUP
+    BY batch with Q3's shape): the claim loop's partition, found flags,
+    ok and claimed count, on every repeat; the journal undoes each batch;
+    the fused lookup's ranges equal their plain version."""
     before = (B2.INSERT_LAUNCHES.count, B2.LOOKUP_LAUNCHES.count)
     inserts, lookups = C.b2_checks(seed=3)
-    assert [c["ok"] for c in inserts] == [True, False, True, True, False]
+    assert [c["ok"] for c in inserts] == [True, False, True, True, False,
+                                          True, True]
     assert lookups[0]["found"] > 0
     assert B2.INSERT_LAUNCHES.count > before[0]
     assert B2.LOOKUP_LAUNCHES.count > before[1]
+
+
+def _shape(label):
+    return next(s for s in C.b2_shapes(seed=7) if s["label"] == label)
+
+
+@pytest.mark.parametrize("label", ["collision_storm", "full_table",
+                                   "groupby_batch_8192", "q3_groupby_batch",
+                                   "groupby_batch_4194304"])
+def test_window_walk_matches_claim_loop(card, label):
+    """The kernel's windowed walk on clustered keys (Q3's GROUP BY batch,
+    into a table already holding groups), a collision storm, full tables
+    and a table above the L2: ok, the claimed count and a partition as
+    the claim loop's, every row at the slot of its own key."""
+    from presto_tpu_torch.ops import hashtable as H
+
+    shape = _shape(label)
+    keys, live, cap = shape["keys"], shape["live"], shape["cap"]
+    tw, tc = C.b2_table(shape)
+    pw, pc = tw.clone(), tc.clone()
+    live_all = torch.ones(keys.shape[0], dtype=torch.bool, device=card) \
+        if live is None else live
+    _pslot, pok = H.probe_insert(keys, live_all, pw, pc)
+    used_before = int(H.used_slots(tc).sum())
+    slot, status, journal = B2.launch_insert(keys, live, tw, tc)
+    fail, n_claimed = status.tolist()
+    assert (not fail) == pok
+    placed = live_all & (slot != cap)
+    C._check_partition(keys, slot, placed, cap, label)
+    assert torch.equal(tw[slot[placed].long()], keys[placed])
+    assert int((journal >= 0).sum()) == n_claimed
+    assert n_claimed == int(H.used_slots(tc).sum()) - used_before
+    if pok:
+        assert n_claimed == int(H.used_slots(pc).sum()) - used_before
+
+
+def test_kernel_refuses_a_table_below_one_window(card):
+    """The kernel reads whole windows of B2.WINDOW control words: a CUDA
+    table smaller than one raises, it takes no other path."""
+    from presto_tpu_torch.ops import hashtable as H
+
+    keys = torch.arange(3, dtype=torch.int64, device=card)[:, None]
+    tw, tc = H.empty_table(B2.WINDOW // 2, 1, card)
+    with pytest.raises(ValueError, match="at least"):
+        B2.insert(keys, None, tw, tc)
+    with pytest.raises(ValueError, match="at least"):
+        B2.lookup(keys, None, tw, tc)
+
+
+def test_failed_insert_stops_early_and_journal_restores(card):
+    """A batch too large for its table: ok is False as for the claim loop,
+    and groupby_update takes the placed keys out again through the
+    journal, so the control words and the group count are as before."""
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.ops import hashtable as H
+
+    gen = torch.Generator(device=card).manual_seed(11)
+    state = H.groupby_init(8_192, 2, [torch.int64], [True],
+                           [("count", None)], card)
+    first = torch.randint(0, 1 << 40, (4_000,), generator=gen, device=card)
+    state, ng, ok = H.groupby_update(state, [(first, None, T.BIGINT)],
+                                     [("count", None, None)], 4_000)
+    assert ok and ng == int(H.used_slots(state[1]).sum())
+    ctrl = state[1].clone()
+    big = torch.randint(0, 1 << 40, (65_536,), generator=gen, device=card)
+    state2, ng2, ok2 = H.groupby_update(state, [(big, None, T.BIGINT)],
+                                        [("count", None, None)], 65_536)
+    assert not ok2 and ng2 == ng and state2 is state
+    assert torch.equal(state[1], ctrl)
+    pw, pc = H.empty_table(8_192, 2, card)
+    kw = torch.stack([big, torch.zeros_like(big)], 1)
+    assert not H.probe_insert(kw, torch.ones(65_536, dtype=torch.bool,
+                                             device=card), pw, pc)[1]
+
+
+def test_lookup_ranges_kernel_matches_plain(card):
+    """The fused (lo, cnt) lookup of a PagesHash probe against its plain
+    version, with dead rows and absent keys."""
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.ops import hashtable as H
+
+    gen = torch.Generator(device=card).manual_seed(13)
+    bk = torch.randint(0, 20_000, (30_000,), generator=gen, device=card)
+    tw, tc, starts, counts, _perm, _null, ok = H.pages_hash_build(
+        [(bk, None, T.BIGINT)], 30_000, 65_536)
+    assert ok
+    pk = torch.randint(0, 40_000, (65_536, 1), generator=gen, device=card)
+    live = torch.rand(65_536, generator=gen, device=card) > 0.1
+    before = B2.LOOKUP_LAUNCHES.count
+    got = B2.lookup_ranges(pk, live, tw, tc, starts, counts)
+    assert B2.LOOKUP_LAUNCHES.count == before + 1
+    want = B2.lookup_ranges_reference(pk, live, tw, tc, starts, counts)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
 
 
 def test_float_group_sums_bit_identical_on_every_tier(card):

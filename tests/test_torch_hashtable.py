@@ -353,8 +353,9 @@ def test_port_insert_full_table_not_ok_accumulates_nothing():
 
 def test_failed_update_leaves_state_as_jax_does():
     """An insert that fails part-way leaves the table as it was: the keys
-    it placed before the probe bound tripped are not extracted (the JAX
-    package drops the failed state whole)."""
+    it placed before the probe bound tripped are taken out again through
+    its journal and are not extracted (the JAX package drops the failed
+    state whole)."""
     specs = [("sum", np.float64), ("count", None)]
     jstate = JH.groupby_init(64, 2, [np.dtype(np.int64)], [True],
                              [(p, None if d is None else np.dtype(d))
@@ -369,13 +370,18 @@ def test_failed_update_leaves_state_as_jax_does():
             jstate, [(jnp.asarray(keys), None, JT.BIGINT)],
             [("sum", jnp.asarray(vals), None), ("count", None, None)],
             jnp.asarray(n))
+        ctrl_before = pstate[1].clone()
         pstate, png, pok = _update(pstate, keys, None,
                                    [("sum", vals), ("count", None)], n)
         assert bool(jok) == pok == want_ok
         if jok:
             jstate = jnew
+        else:
+            # undone through the insert's journal: the control words are
+            # those from before the batch, the group count the state's
+            assert torch.equal(pstate[1], ctrl_before)
         # the JAX caller keeps the old state when ok is False
-        assert png == int(JH.groupby_extract(jstate)[0])
+        assert png == pstate[4] == int(JH.groupby_extract(jstate)[0])
         _assert_maps_equal(_port_state_map(pstate),
                            _jax_state_map(jstate, 1))
 
@@ -424,6 +430,99 @@ def test_port_pages_hash_duplicate_and_missing_probe_keys():
                 assert perm[lo[i] + j] > perm[lo[i] + j - 1]
 
 
+def _journal_case(case):
+    """(keys [n, k], live, t_words, t_ctrl) for a journal test: the batch
+    and the table it goes into."""
+    rng = np.random.default_rng(17)
+    if case == "collision_storm":
+        keys = rng.integers(0, 700, 2048)[:, None]
+        tw, tc = H.empty_table(2048, 1, "cpu")
+    elif case == "null_keys":
+        # (value, null flag) words as groupby_update keys a nullable column
+        vals = rng.integers(0, 64, 4096)
+        valid = rng.random(4096) > 0.3
+        keys = np.stack([np.where(valid, vals, 0), (~valid).astype(np.int64)],
+                        1)
+        tw, tc = H.empty_table(1024, 2, "cpu")
+    elif case == "rehash_boundary":
+        # 400 keys inserted at 1,024 slots, carried into 4,096, then a batch
+        # of 400 new keys and 200 of the old ones
+        old = np.arange(400, dtype=np.int64)[:, None]
+        tw0, tc0 = H.empty_table(1024, 1, "cpu")
+        assert B2.insert(torch.from_numpy(old), None, tw0, tc0)[1]
+        tw, tc = H.empty_table(4096, 1, "cpu")
+        carried = tw0[H.used_slots(tc0)]
+        assert B2.insert(carried, None, tw, tc)[1]
+        keys = np.concatenate([1000 + np.arange(2048) % 400,
+                               np.arange(2048) % 200])[:, None]
+    else:                                       # a full table
+        keys = np.arange(1000)[:, None]
+        tw, tc = H.empty_table(64, 1, "cpu")
+    keys = torch.from_numpy(np.ascontiguousarray(keys, dtype=np.int64))
+    live = torch.from_numpy(rng.random(keys.shape[0]) > 0.1)
+    return keys, live, tw, tc
+
+
+@pytest.mark.parametrize("case", ["collision_storm", "null_keys",
+                                  "rehash_boundary", "full_table"])
+def test_plain_journal_lists_the_slots_that_turned_used(case):
+    """The CPU path's journal (the claim loop's winners): one row per slot
+    the batch turned from EMPTY to ready, that row's own slot, the first
+    row of its key; the count is the number of new keys placed."""
+    keys, live, tw, tc = _journal_case(case)
+    before = tc.clone()
+    slot, ok, n_claimed, journal = B2.insert_claims(keys, live, tw, tc)
+    assert ok == (case != "full_table")
+    assert journal.dtype == torch.int32 and journal.shape == slot.shape
+    turned = torch.nonzero((before == H.EMPTY)
+                           & (tc != H.EMPTY)).squeeze(1)
+    rows = torch.nonzero(journal >= 0).squeeze(1)
+    assert n_claimed == rows.shape[0] == turned.shape[0]
+    assert torch.equal(torch.sort(journal[rows].long()).values, turned)
+    assert torch.equal(journal[rows], slot[rows])
+    # independently of the table: the claiming rows are the first live
+    # row of each key that is placed and was not in the table before
+    held = {tuple(w) for w in tw[before != H.EMPTY].tolist()}
+    first = {}
+    for r, (key, lv, s) in enumerate(zip(map(tuple, keys.tolist()),
+                                         live.tolist(), slot.tolist())):
+        if lv and s != tc.shape[0] and key not in held:
+            first.setdefault(key, r)
+    assert sorted(first.values()) == rows.tolist()
+    # the journal undoes the batch
+    tc[journal[journal >= 0].long()] = H.EMPTY
+    assert torch.equal(tc, before)
+
+
+def test_lookup_ranges_plain_equals_the_probe_it_replaced():
+    """The fused (lo, cnt) lookup's plain version gives what
+    pages_hash_probe computed after its (slot, found) lookup: the hit
+    rows' starts/counts at their slot, (0, 0) elsewhere."""
+    rng = np.random.default_rng(23)
+    bk = rng.integers(-300, 300, 1024)
+    pk = rng.integers(-600, 600, 2048)
+    pvalid = rng.random(2048) > 0.1
+    tw, tc, starts, counts, _perm, _null, ok = H.pages_hash_build(
+        [(torch.from_numpy(bk), None, T.BIGINT)], 1000, 2048)
+    assert ok
+    keys = torch.from_numpy(pk)[:, None].contiguous()
+    live = torch.from_numpy(pvalid) & (torch.arange(2048) < 2000)
+    slot, found = B2.lookup(keys, live, tw, tc)
+    hit = live & found
+    s = torch.where(hit, slot.to(torch.int64), 0)
+    want_lo = torch.where(hit, starts[s].to(torch.int64), 0)
+    want_cnt = torch.where(hit, counts[s].to(torch.int64), 0)
+    lo, cnt = B2.lookup_ranges(keys, live, tw, tc, starts, counts)
+    assert lo.dtype == cnt.dtype == torch.int64
+    assert torch.equal(lo, want_lo) and torch.equal(cnt, want_cnt)
+    assert int(cnt.sum()) > 0 and bool((cnt[~hit] == 0).all())
+    plo, pcnt, plive = H.pages_hash_probe(
+        (tw, tc, starts, counts),
+        [(torch.from_numpy(pk), torch.from_numpy(pvalid), T.BIGINT)], 2000)
+    assert torch.equal(plive, live)
+    assert torch.equal(plo, want_lo) and torch.equal(pcnt, want_cnt)
+
+
 def test_wrappers_check_their_inputs():
     tw, tc = H.empty_table(64, 1, "cpu")
     keys = torch.zeros((5, 1), dtype=torch.int64)
@@ -436,6 +535,14 @@ def test_wrappers_check_their_inputs():
                   torch.zeros(48, dtype=torch.int32))
     with pytest.raises(TypeError):
         B2.lookup(keys, torch.ones(4, dtype=torch.bool), tw, tc)
+    starts = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        B2.lookup_ranges(keys, None, tw, tc, starts, starts.long())
+    with pytest.raises(TypeError):
+        B2.lookup_ranges(keys, None, tw, tc, starts[:32], starts)
     slot, ok = B2.insert(keys, None, tw, tc)
     assert ok and B2.INSERT_LAUNCHES.count == 0   # CPU: the plain loop
     assert len(set(slot.tolist())) == 1
+    assert B2.LOOKUP_LAUNCHES.count == 0
+    assert B2.lookup_ranges(keys, None, tw, tc, starts, starts)[1].shape == (
+        5,)
