@@ -12,8 +12,14 @@ Phases (any failure exits non-zero; nothing is caught):
    version and against itself on a repeat, with CUDA-event times of the
    kernel, the plain version and one PyTorch library call, and the least
    time the card could take (``bound_ms``):
-   - B1 (segment sums): within 1e-12 relative of the plain version, and
-     bit-identical on a repeat;
+   - B1 (segment sums, ``B1_SHAPES``: Q1's at SF1, the gate's 32
+     segments at a ragged N, one row, the edges of the 8-, 16- and
+     32-segment builds, a column off 16 bytes): within 1e-12 relative of
+     the plain version, bit-identical on a repeat, and out-of-range group
+     ids counted in the status word and left out of the sums;
+     ``kernel_ms`` (device time from a CUDA graph) and ``wrapper_ms``
+     (the call) as for B2, and ``library_mm_ms`` (a float64 one-hot
+     ``torch.mm``) beside ``library_ms`` (``index_add_``);
    - B2 (probe-insert and lookup): the same group partition as the plain
      claim loop (same key -> same slot, distinct keys -> distinct slots),
      the same found flags, the same ``ok`` and as many claimed slots, on
@@ -67,10 +73,12 @@ import subprocess
 import sys
 import time
 
-# H100 SXM data sheet rates (the card's memory rate, float64 rate, and
-# the float32 rate outside the tensor cores, taken for 32-bit integer ops)
+# H100 SXM data sheet rates (the card's memory rate; its float64 add rate
+# outside the tensor cores, the data sheet's 34 TFLOP/s counting an FMA as
+# two operations; and the float32 rate outside the tensor cores, taken for
+# 32-bit integer ops)
 HBM_BYTES_PER_S = 3.35e12
-FP64_OPS_PER_S = 34e12
+FP64_OPS_PER_S = 17e12
 INT_OPS_PER_S = 67e12
 L2_BYTES = 50e6
 SECTOR = 32
@@ -224,47 +232,122 @@ def graph_ms(step, iters: int, reset=None, replays: int = 3) -> float:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_segment_sums(n: int, g: int, a: int, seed: int) -> dict:
-    """B1 at one shape: kernel vs plain (<= 1e-12 relative), repeat
-    bit-identity, and times."""
+def b1_inputs(n: int, g: int, a: int, seed: int, odd: bool = False):
+    """B1's inputs: int32 group ids in [0, g) and ``a`` float64 columns,
+    each its own allocation as the direct tier makes them; with ``odd``
+    the first column lies at an odd 8-byte offset (not 16-byte aligned)."""
     import torch
-
-    from presto_tpu_torch.ops import segment_sums as S
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     gid = torch.randint(0, g, (n,), generator=gen, device="cuda",
                         dtype=torch.int32)
-    vals = torch.rand((n, a), generator=gen, device="cuda",
-                      dtype=torch.float64) * 1e5
-    got = S.direct_segment_sums(gid, vals, g)
-    again = S.direct_segment_sums(gid, vals, g)
-    want = S.direct_segment_sums_reference(gid, vals, g)
+    cols = [torch.rand(n, generator=gen, device="cuda",
+                       dtype=torch.float64) * 1e5 for _ in range(a)]
+    if odd:
+        shifted = torch.empty(n + 1, dtype=torch.float64, device="cuda")[1:]
+        cols[0] = shifted.copy_(cols[0])
+    return gid, cols
+
+
+def _rel_err(got, want) -> float:
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def check_segment_sums(label: str, n: int, g: int, a: int, seed: int,
+                       odd: bool = False) -> dict:
+    """B1 at one shape, through the wrapper the direct tier calls: within
+    1e-12 relative of the plain version, bit-identical on a repeat, a
+    status word of 0, and with some group ids out of range, those rows
+    counted in the status word and left out of the sums.  Then the times:
+    ``kernel_ms`` (device time of one launch of the C entry, from a CUDA
+    graph), ``wrapper_ms`` (``direct_segment_sums`` as the direct tier
+    calls it, CUDA events, host included), the plain version,
+    ``index_add_`` and a float64 one-hot ``torch.mm`` (the TPU kernel's
+    formulation on cuBLAS) over the stacked columns."""
+    import torch
+
+    from presto_tpu_torch.ops import segment_sums as S
+
+    gid, cols = b1_inputs(n, g, a, seed, odd)
+    got, bad = S.direct_segment_sums(gid, cols, g)
+    again, bad2 = S.direct_segment_sums(gid, cols, g)
+    want = S.direct_segment_sums_reference(gid, cols, g)
     torch.cuda.synchronize()
-    abs_err = float((got - want).abs().max())
-    rel_err = float(((got - want).abs()
-                     / want.abs().clamp(min=1.0)).max())
+    rel_err = _rel_err(got, want)
     if rel_err > 1e-12:
-        raise AssertionError(f"segment_sums n={n} g={g} a={a}: relative "
-                             f"error {rel_err} > 1e-12")
+        raise AssertionError(f"segment_sums {label}: relative error "
+                             f"{rel_err} > 1e-12")
     if not torch.equal(got, again):
-        raise AssertionError(f"segment_sums n={n} g={g} a={a}: two runs "
-                             "differ")
+        raise AssertionError(f"segment_sums {label}: two runs differ")
+    if int(bad[0]) != 0 or int(bad2[0]) != 0:
+        raise AssertionError(f"segment_sums {label}: status "
+                             f"{int(bad[0])}, {int(bad2[0])} for ids in "
+                             "range")
+    # every (n // 5)-th row out of range, alternately n_seg and -1
+    idx = torch.arange(0, n, max(1, n // 5), device="cuda")
+    gid_bad = gid.clone()
+    gid_bad[idx[0::2]] = g
+    gid_bad[idx[1::2]] = -1
+    ok = (gid_bad >= 0) & (gid_bad < g)
+    got_bad, n_bad = S.direct_segment_sums(gid_bad, cols, g)
+    want_bad = S.direct_segment_sums_reference(
+        torch.where(ok, gid_bad, 0), [torch.where(ok, c, 0.0) for c in cols],
+        g)
+    if int(n_bad[0]) != idx.numel():
+        raise AssertionError(f"segment_sums {label}: status {int(n_bad[0])}"
+                             f", {idx.numel()} rows out of range")
+    if _rel_err(got_bad, want_bad) > 1e-12:
+        raise AssertionError(f"segment_sums {label}: out-of-range rows "
+                             "reached the sums")
+    del gid_bad, ok, got_bad, want_bad
+
     iters = 20 if n > 100_000 else 200
-    gid64 = gid.long()
-    ms = cuda_ms(lambda: S._launch(gid, vals, g), iters)
+    bufs = S.buffers(gid, cols, g)
+    kernel_ms = graph_ms(lambda: S.launch(gid, cols, g, *bufs), iters)
+    wrapper_ms = cuda_ms(lambda: S.direct_segment_sums(gid, cols, g), iters)
     plain_ms = cuda_ms(
-        lambda: S.direct_segment_sums_reference(gid, vals, g), iters)
+        lambda: S.direct_segment_sums_reference(gid, cols, g), iters)
+    stacked = torch.stack(cols, 1)
+    gid64 = gid.long()
     library_ms = cuda_ms(
         lambda: torch.zeros((g, a), dtype=torch.float64,
-                            device="cuda").index_add_(0, gid64, vals),
+                            device="cuda").index_add_(0, gid64, stacked),
         iters)
+    one_hot = (gid[None, :] == torch.arange(g, device="cuda",
+                                            dtype=torch.int32)[:, None]
+               ).to(torch.float64)
+    library_mm_ms = cuda_ms(lambda: torch.mm(one_hot, stacked), iters)
+    del stacked, one_hot
     nbytes = n * (4 + 8 * a) + g * a * 8
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n * a / FP64_OPS_PER_S * 1e3
-    return {"n": n, "g": g, "a": a, "max_abs_err": abs_err,
-            "max_rel_err": rel_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+    per, blocks = S._grid(gid, a, g)
+    return {"shape": label, "n": n, "g": g, "a": a, "odd_column": odd,
+            "launches_per_call": -(-a // per), "blocks": blocks,
+            "max_abs_err": float((got - want).abs().max()),
+            "max_rel_err": rel_err, "bit_identical": True,
+            "status_rows": int(n_bad[0]),
+            "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_mm_ms": library_mm_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+# B1's phase-2 shapes: (label, n, n_seg, columns, odd-offset column).
+# Q1's at SF1 (2^23 padded rows, 7 segments, 19 sum/count columns) first;
+# the gate's largest n_seg at a ragged N; the smallest; the edges of the
+# 8-, 16- and 32-segment builds at Q1's N and A; a column off 16 bytes
+B1_SHAPES = [
+    ("q1_sf1", 1 << 23, 7, 19, False),
+    ("gate_ragged", 1_000_003, 32, 5, False),
+    ("smallest", 1, 1, 1, False),
+    ("q1_n_seg_8", 1 << 23, 8, 19, False),
+    ("q1_n_seg_9", 1 << 23, 9, 19, False),
+    ("q1_n_seg_16", 1 << 23, 16, 19, False),
+    ("q1_n_seg_17", 1 << 23, 17, 19, False),
+    ("q1_odd_column", 1 << 23, 7, 19, True),
+]
 
 
 def _hash_ops(n: int, k: int) -> float:
@@ -616,7 +699,7 @@ def c2_checks(seed: int):
     codes = (keys % 64).to(torch.int32)
 
     def direct():
-        _present, res = G.direct_grouped_aggregate(
+        _present, res, _bad = G.direct_grouped_aggregate(
             [(codes, None)], [64], [("sum", vals, None)], n)
         return res[0][0], torch.arange(64, device="cuda")
 
@@ -918,11 +1001,8 @@ def main() -> int:
         print(f"nvcc[{name}]: {log.strip()}", flush=True)
 
     # -- phase 2: kernels against their plain versions --------------------
-    # Q1's shape at SF1 (2^23 padded rows, 7 segments, 19 sum/count
-    # columns), a ragged shape at the gate, and the smallest
-    shapes = [(1 << 23, 7, 19), (1_000_003, 32, 5), (1, 1, 1)]
-    checks = [check_segment_sums(n, g, a, args.seed + i)
-              for i, (n, g, a) in enumerate(shapes)]
+    checks = [check_segment_sums(label, n, g, a, args.seed + i, odd)
+              for i, (label, n, g, a, odd) in enumerate(B1_SHAPES)]
     for c in checks:
         print("segment_sums " + json.dumps(c), flush=True)
     inserts, lookups = b2_checks(args.seed)
@@ -1055,9 +1135,10 @@ def main() -> int:
     def entry(name, source, replaces, launches, c):
         """``launches``: {path: count of that path's own run}; the key
         ``launches`` is the count on this slice's main path (Q3), or Q1's
-        for B1.  B2's ``ms`` is ``kernel_ms``, its device time from a CUDA
-        graph (the lookup's in the (lo, cnt) mode the path runs), with
-        ``wrapper_ms`` (the call) and ``library_device_ms`` beside it."""
+        for B1.  ``ms`` is ``kernel_ms``, the device time from a CUDA
+        graph (B2's lookup's in the (lo, cnt) mode the path runs), with
+        ``wrapper_ms`` (the call), and ``library_device_ms`` (B2) or
+        ``library_mm_ms`` (B1) beside it."""
         main = launches.get("q3", launches.get("q1"))
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": main,
@@ -1066,7 +1147,7 @@ def main() -> int:
                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
         for key in ("shape", "kernel_ms", "wrapper_ms",
-                    "library_device_ms"):
+                    "library_device_ms", "library_mm_ms"):
             if key in c:
                 out[key] = c[key]
         return out

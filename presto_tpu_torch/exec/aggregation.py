@@ -370,10 +370,17 @@ class HashAggregationOperator(Operator):
         key_cols = [data.columns[c] for c in self.group_channels]
         key_codes = [(c.values, c.valid) for c in key_cols]
         agg_ins, posts = _agg_inputs(self.aggs, data)
-        present, results = direct_grouped_aggregate(
+        present, results, bad = direct_grouped_aggregate(
             key_codes, doms, agg_ins, data.num_rows)
+        if bad is not None:
+            # B1's status word rides on the nonzero's read: the copy is
+            # queued first, so that read's wait covers it
+            bad = bad.to("cpu", non_blocking=True)
         slots = torch.nonzero(present).squeeze(1)
         num_groups = int(slots.shape[0])
+        if bad is not None and int(bad[0]) != 0:
+            raise ValueError(f"{int(bad[0])} rows with a group id outside "
+                             f"[0, {present.shape[0] + 1})")
         decoded = decode_direct_keys(
             slots, [c.valid is not None for c in key_cols], doms)
         cols = []

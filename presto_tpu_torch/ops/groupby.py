@@ -239,9 +239,12 @@ def direct_grouped_aggregate(
     here (null is a group, SQL semantics).  ``live_mask`` fuses an upstream
     filter (WHERE) without compaction.
 
-    Returns ``(present [D] bool, results [(values [D], cnt [D])])`` over
-    the dense domain ``D = prod(shifted domains)``; key values for slot g
-    decode arithmetically (``decode_direct_keys``).
+    Returns ``(present [D] bool, results [(values [D], cnt [D])], bad)``
+    over the dense domain ``D = prod(shifted domains)``; key values for
+    slot g decode arithmetically (``decode_direct_keys``).  ``bad`` is
+    ``direct_segment_sums``'s int32 ``[1]`` count of rows whose group id
+    fell outside the domain, left on the device for the caller's next
+    host read (None above the kernel's 32 segments).
     """
     codes0 = key_codes[0][0]
     cap = codes0.shape[0]
@@ -263,10 +266,9 @@ def direct_grouped_aggregate(
     n_seg = total + 1
 
     # --- sums & counts ---------------------------------------------------
-    # Float sums and every count column (sums of ones, exact in f64) form
-    # one [N, A] float64 matrix reduced by gid.  Integer sums stay exact
-    # in their native dtype (an f64 reduction rounds int64 sums above
-    # 2^53).
+    # Float sums and every count column (sums of ones, exact in f64) are
+    # A float64 columns reduced by gid.  Integer sums stay exact in their
+    # native dtype (an f64 reduction rounds int64 sums above 2^53).
     sum_cols, live_masks, int_sums = [], [], {}
     for i, (prim, values, valid) in enumerate(aggs):
         lv = live if valid is None else (live & valid)
@@ -283,14 +285,15 @@ def direct_grouped_aggregate(
         sum_cols.append(lv.to(torch.float64))    # non-null count column
     sum_cols.append(live.to(torch.float64))      # group-present count
 
-    m = torch.stack(sum_cols, 1)                 # [N, A]
+    bad = None
     if n_seg <= MAX_SEGMENTS:
         # the JAX package hands this reduction to its MXU/Pallas route at
         # the same domain size; here the hand-written kernel (a CUDA
-        # tensor) or its plain version (a CPU tensor)
-        reduced = direct_segment_sums(gid, m, n_seg)
+        # tensor), which reads the columns where they lie, or its plain
+        # version (a CPU tensor)
+        reduced, bad = direct_segment_sums(gid, sum_cols, n_seg)
     else:
-        reduced = segment_sums(gid, m, n_seg)
+        reduced = segment_sums(gid, torch.stack(sum_cols, 1), n_seg)
     reduced = reduced[:total]                    # [G, A]
 
     star = torch.round(reduced[:, -1]).to(torch.int64)
@@ -316,7 +319,7 @@ def direct_grouped_aggregate(
             raise ValueError(f"unknown aggregation primitive {prim}")
         out = _segment_extreme(values, lv, gid, n_seg, prim)[:total]
         results.append((out, cnt))
-    return present, results
+    return present, results, bad
 
 
 def decode_direct_keys(slots: torch.Tensor,

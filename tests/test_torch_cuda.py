@@ -43,25 +43,87 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,a,g", [(1 << 20, 19, 7), (1_000_003, 5, 32),
-                                   (1, 1, 1), (0, 3, 2)])
-def test_segment_sums_kernel_matches_plain(card, n, a, g):
-    gen = torch.Generator(device=card).manual_seed(n)
-    gid = torch.randint(0, g, (n,), generator=gen, device=card,
-                        dtype=torch.int32)
-    vals = torch.rand((n, a), generator=gen, device=card,
-                      dtype=torch.float64) * 1e5
+@pytest.mark.parametrize("n,a,g,odd", [
+    (1 << 20, 19, 7, False), (1_000_003, 5, 32, False), (1, 1, 1, False),
+    (0, 3, 2, False),
+    # the edges of the 8-, 16- and 32-segment builds at Q1's width
+    (1 << 20, 19, 8, False), (1 << 20, 19, 9, False),
+    (1 << 20, 19, 16, False), (1 << 20, 19, 17, False),
+    # a column off 16 bytes (scalar loads), and more columns than a launch
+    (1 << 20, 19, 7, True), (300_001, 40, 5, False)])
+def test_segment_sums_kernel_matches_plain(card, n, a, g, odd):
+    gid, cols = C.b1_inputs(n, g, a, seed=n + g, odd=odd)
+    per, _blocks = S._grid(gid, a, g)
     before = S.LAUNCHES.count
-    got = S.direct_segment_sums(gid, vals, g)
-    again = S.direct_segment_sums(gid, vals, g)
-    want = S.direct_segment_sums_reference(gid, vals, g)
+    got, bad = S.direct_segment_sums(gid, cols, g)
+    again, bad2 = S.direct_segment_sums(gid, cols, g)
+    want = S.direct_segment_sums_reference(gid, cols, g)
     torch.cuda.synchronize()
-    assert S.LAUNCHES.count == before + 2
+    assert S.LAUNCHES.count == before + 2 * -(-a // per)
+    assert int(bad[0]) == int(bad2[0]) == 0
     # both float64: only the order of the additions differs
     err = (got - want).abs() / want.abs().clamp(min=1.0)
     assert float(err.max()) <= 1e-12 if n else torch.equal(got, want)
     # no float atomics: the same bits on every run
     assert torch.equal(got, again)
+
+
+def test_segment_sums_captures_in_a_cuda_graph(card):
+    """The wrapper reads nothing back from the card (a read would fail the
+    capture), and the captured call sums whatever its inputs then hold."""
+    gid, cols = C.b1_inputs(1 << 18, 7, 19, seed=5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want, _ = S.direct_segment_sums(gid, cols, 7)  # build, plan
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, bad = S.direct_segment_sums(gid, cols, 7)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(bad[0]) == 0
+    cols[3].mul_(-2.0)
+    gid.copy_(torch.flip(gid, (0,)))
+    graph.replay()
+    torch.cuda.synchronize()
+    plain = S.direct_segment_sums_reference(gid, cols, 7)
+    assert float(((got - plain).abs() / plain.abs().clamp(min=1.0)).max()
+                 ) <= 1e-12
+
+
+def test_out_of_range_gid_sets_status_and_direct_tier_raises(card):
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.batch import Batch, Column
+    from presto_tpu_torch.exec import aggregation as A
+
+    n = 100_003
+    gid, cols = C.b1_inputs(n, 7, 3, seed=9)
+    gid[torch.tensor([5, 77, n - 1], device=card)] = torch.tensor(
+        [7, -1, 40], dtype=torch.int32, device=card)
+    got, bad = S.direct_segment_sums(gid, cols, 7)
+    assert int(bad[0]) == 3
+    ok = (gid >= 0) & (gid < 7)
+    want = S.direct_segment_sums_reference(
+        torch.where(ok, gid, 0), [torch.where(ok, c, 0.0) for c in cols], 7)
+    assert float(((got - want).abs() / want.abs().clamp(min=1.0)).max()
+                 ) <= 1e-12
+    # the direct tier over key codes outside the domains it was given
+    # raises at the host read it makes for the group slots
+    codes = torch.randint(0, 3, (n,), device=card, dtype=torch.int32)
+    codes[10] = 5
+    batch = Batch((Column(T.INTEGER, codes),
+                   Column(T.INTEGER, torch.zeros_like(codes)),
+                   Column(T.DOUBLE, cols[0])), n)
+    op = object.__new__(A.HashAggregationOperator)
+    op.group_channels = [0, 1]
+    op.aggs = [A.AggChannel("sum", 2, T.DOUBLE),
+               A.AggChannel("count", None, T.BIGINT)]
+    with pytest.raises(ValueError, match="group id outside"):
+        op._compute_direct(batch, [3, 2])
+    codes[10] = 2
+    out = op._compute_direct(batch, [3, 2])
+    assert out.num_rows == 3
 
 
 def test_q1_on_cuda_matches_cpu(card):

@@ -63,7 +63,7 @@ def test_direct_grouped_aggregate_matches_jax(doms, nullable, masked):
         [(_jax(c), _jax(v)) for c, v in keys], doms,
         [(p, _jax(v), _jax(m)) for p, v, m in aggs], jnp.asarray(n_rows),
         live_mask=_jax(live) if masked else None)
-    ppres, pres = PG.direct_grouped_aggregate(
+    ppres, pres, _bad = PG.direct_grouped_aggregate(
         [(_torch(c), _torch(v)) for c, v in keys], doms,
         [(p, _torch(v), _torch(m)) for p, v, m in aggs], n_rows,
         live_mask=_torch(live) if masked else None)
