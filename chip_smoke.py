@@ -55,7 +55,25 @@ Phases (any failure exits non-zero; nothing is caught):
      line's ``launches`` is Q3's (Q1's for B1), with every path's count
      beside it under ``launches_by_path``.  One more run of each, which
      no wall reads, records the rows of its B2 launches (``b2_rows``:
-     mean, min and max of batch and live rows, and the table sizes).
+     mean, min and max of batch and live rows, and the table sizes);
+4. the queries of ``SQL_QUERIES`` on the card (TPC-H Q4, Q11, Q15, Q16,
+   Q18, Q20, Q21, Q22: semi and anti joins, NOT IN, a correlated EXISTS
+   and NOT EXISTS with a residual, cross joins against scalar
+   subqueries), each against its numpy oracle (rows whose ORDER BY
+   columns tie compared as sets), one cold and two warm runs giving the
+   same bits, the semi/anti probes' inputs on cuda, and each query's own
+   B1 and B2 launches and join tiers on its ``sql`` line; Q4 must launch
+   B1 (its GROUP BY takes the direct tier), Q18 and Q20 B2's insert and
+   lookup (their semi builds take PagesHash).  These counts join the
+   kernels line's ``launches_by_path``.  One more run of each query,
+   which no wall reads, keeps a copy of the inputs of each kernel's
+   largest launch and of B2's insert into the fullest table (each insert
+   with its table as it was before);
+5. each kernel at the inputs phase 4 kept for each path, held against its
+   plain version and timed as in phase 2 (``segment_sums``,
+   ``probe_insert`` and ``probe_lookup`` lines with a ``path``, and under
+   ``by_path`` in the kernels line); a path that launched a kernel and
+   kept no inputs for it fails.
 
 Phase 2 calls the wrappers the hash tiers call (``B2.insert_claims``,
 ``B2.lookup``, ``B2.lookup_ranges``) for its checks.
@@ -136,6 +154,128 @@ PARTKEY = """
 select l_partkey, sum(l_quantity), count(*) from lineitem
 group by l_partkey
 """
+
+
+# TPC-H queries with semi and anti joins, a cross join against a scalar
+# subquery, or both (the TPC-H spec's text with its validation parameters)
+SQL_QUERIES = {
+    "q4": """
+select o_orderpriority, count(*) as order_count
+from orders
+where o_orderdate >= date '1993-07-01'
+  and o_orderdate < date '1993-07-01' + interval '3' month
+  and exists (select * from lineitem
+              where l_orderkey = o_orderkey
+                and l_commitdate < l_receiptdate)
+group by o_orderpriority
+order by o_orderpriority
+""",
+    "q11": """
+select ps_partkey, sum(ps_supplycost * ps_availqty) as value
+from partsupp, supplier, nation
+where ps_suppkey = s_suppkey and s_nationkey = n_nationkey
+  and n_name = 'GERMANY'
+group by ps_partkey
+having sum(ps_supplycost * ps_availqty) > (
+    select sum(ps_supplycost * ps_availqty) * 0.0001
+    from partsupp, supplier, nation
+    where ps_suppkey = s_suppkey and s_nationkey = n_nationkey
+      and n_name = 'GERMANY')
+order by value desc
+""",
+    "q15": """
+with revenue as (
+    select l_suppkey as supplier_no,
+           sum(l_extendedprice * (1 - l_discount)) as total_revenue
+    from lineitem
+    where l_shipdate >= date '1996-01-01'
+      and l_shipdate < date '1996-01-01' + interval '3' month
+    group by l_suppkey)
+select s_suppkey, s_name, s_address, s_phone, total_revenue
+from supplier, revenue
+where s_suppkey = supplier_no
+  and total_revenue = (select max(total_revenue) from revenue)
+order by s_suppkey
+""",
+    "q16": """
+select p_brand, p_type, p_size, count(distinct ps_suppkey) as supplier_cnt
+from partsupp, part
+where p_partkey = ps_partkey and p_brand <> 'Brand#45'
+  and p_type not like 'MEDIUM POLISHED%'
+  and p_size in (49, 14, 23, 45, 19, 3, 36, 9)
+  and ps_suppkey not in (select s_suppkey from supplier
+                         where s_comment like '%Customer%Complaints%')
+group by p_brand, p_type, p_size
+order by supplier_cnt desc, p_brand, p_type, p_size
+""",
+    "q18": """
+select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+       sum(l_quantity)
+from customer, orders, lineitem
+where o_orderkey in (select l_orderkey from lineitem
+                     group by l_orderkey
+                     having sum(l_quantity) > 300)
+  and c_custkey = o_custkey and o_orderkey = l_orderkey
+group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+order by o_totalprice desc, o_orderdate
+limit 100
+""",
+    "q20": """
+select s_name, s_address
+from supplier, nation
+where s_suppkey in (
+        select ps_suppkey from partsupp
+        where ps_partkey in (select p_partkey from part
+                             where p_name like 'forest%')
+          and ps_availqty > (select 0.5 * sum(l_quantity)
+                             from lineitem
+                             where l_partkey = ps_partkey
+                               and l_suppkey = ps_suppkey
+                               and l_shipdate >= date '1994-01-01'
+                               and l_shipdate < date '1994-01-01'
+                                               + interval '1' year))
+  and s_nationkey = n_nationkey and n_name = 'CANADA'
+order by s_name
+""",
+    "q21": """
+select s_name, count(*) as numwait
+from supplier, lineitem l1, orders, nation
+where s_suppkey = l1.l_suppkey and o_orderkey = l1.l_orderkey
+  and o_orderstatus = 'F' and l1.l_receiptdate > l1.l_commitdate
+  and exists (select * from lineitem l2
+              where l2.l_orderkey = l1.l_orderkey
+                and l2.l_suppkey <> l1.l_suppkey)
+  and not exists (select * from lineitem l3
+                  where l3.l_orderkey = l1.l_orderkey
+                    and l3.l_suppkey <> l1.l_suppkey
+                    and l3.l_receiptdate > l3.l_commitdate)
+  and s_nationkey = n_nationkey and n_name = 'SAUDI ARABIA'
+group by s_name
+order by numwait desc, s_name
+limit 100
+""",
+    "q22": """
+select cntrycode, count(*) as numcust, sum(c_acctbal) as totacctbal
+from (select substring(c_phone, 1, 2) as cntrycode, c_acctbal
+      from customer
+      where substring(c_phone, 1, 2) in
+                ('13', '31', '23', '29', '30', '18', '17')
+        and c_acctbal > (select avg(c_acctbal) from customer
+                         where c_acctbal > 0.00
+                           and substring(c_phone, 1, 2) in
+                               ('13', '31', '23', '29', '30', '18', '17'))
+        and not exists (select * from orders
+                        where o_custkey = c_custkey)
+     ) as custsale
+group by cntrycode
+order by cntrycode
+""",
+}
+
+# each query's ORDER BY columns: rows whose sort keys tie may come in any
+# order, so the comparison takes each run of ties as a set
+SQL_ORDER_COLUMNS = {"q4": [0], "q11": [1], "q15": [0], "q16": [3, 0, 1, 2],
+                     "q18": [4, 3], "q20": [0], "q21": [1, 0], "q22": [0]}
 
 
 def _days(y, m, d):
@@ -253,9 +393,9 @@ def _rel_err(got, want) -> float:
     return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
 
 
-def check_segment_sums(label: str, n: int, g: int, a: int, seed: int,
-                       odd: bool = False) -> dict:
-    """B1 at one shape, through the wrapper the direct tier calls: within
+def check_segment_sums(label: str, gid, cols, g: int) -> dict:
+    """B1 on ``gid`` and ``cols`` (``g`` segments), through the wrapper the
+    direct tier calls: within
     1e-12 relative of the plain version, bit-identical on a repeat, a
     status word of 0, and with some group ids out of range, those rows
     counted in the status word and left out of the sums.  Then the times:
@@ -268,7 +408,8 @@ def check_segment_sums(label: str, n: int, g: int, a: int, seed: int,
 
     from presto_tpu_torch.ops import segment_sums as S
 
-    gid, cols = b1_inputs(n, g, a, seed, odd)
+    n, a = gid.shape[0], len(cols)
+    odd = any(c.data_ptr() % 16 for c in cols)
     got, bad = S.direct_segment_sums(gid, cols, g)
     again, bad2 = S.direct_segment_sums(gid, cols, g)
     want = S.direct_segment_sums_reference(gid, cols, g)
@@ -457,11 +598,14 @@ def b2_shapes(seed: int):
 
 
 def b2_table(shape):
-    """The table a shape's batch goes into: empty, or holding its
-    ``prefill`` (inserted by the kernel).  Returns (t_words, t_ctrl)."""
+    """The table a shape's batch goes into: a copy of its ``table`` (one
+    a query path held), or empty, or holding its ``prefill`` (inserted by
+    the kernel).  Returns (t_words, t_ctrl)."""
     from presto_tpu_torch.ops import hashtable as H
     from presto_tpu_torch.ops import probe_insert as B2
 
+    if shape.get("table") is not None:
+        return tuple(t.clone() for t in shape["table"])
     keys = shape["build"] if shape["mode"] == "lookup" else shape["prefill"]
     tw, tc = H.empty_table(shape["cap"], shape["keys"].shape[1], "cuda")
     if keys is not None:
@@ -484,7 +628,7 @@ def b2_reset(shape, tw, tc):
     """A step that puts (tw, tc) back as ``b2_table`` left them, and
     flushes the L2 when the table is larger than it (the caller meets
     such a table cold: its previous batch touched a few MB of it)."""
-    if shape["prefill"] is None:
+    if shape["prefill"] is None and shape.get("table") is None:
         steps = [tw.zero_, tc.zero_]
     else:
         tw0, tc0 = tw.clone(), tc.clone()
@@ -581,8 +725,7 @@ def check_probe_insert(shape, iters: int = 20) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = _hash_ops(n_live, k) / INT_OPS_PER_S * 1e3
     return {"shape": label, "n": n, "k": k, "cap": cap, "live": n_live,
-            "prefilled": 0 if shape["prefill"] is None
-            else int(shape["prefill"].shape[0]),
+            "prefilled": int((tc0 != H.EMPTY).sum()),
             "groups": groups, "ok": pok, "max_abs_err": 0.0,
             "ms": kernel_ms, "kernel_ms": kernel_ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -610,12 +753,15 @@ def check_probe_lookup(shape, iters: int = 20) -> dict:
                                 shape["build"], shape["cap"])
     n, k = probe.shape
     tw, tc = b2_table(shape)
-    live = torch.ones(n, dtype=torch.bool, device="cuda")
+    live = shape["live"]
+    if live is None:
+        live = torch.ones(n, dtype=torch.bool, device="cuda")
     slot, found = B2.lookup(probe, live, tw, tc)
     slot2, found2 = B2.lookup(probe, live, tw, tc)
     pslot, pfound = H.probe_find(probe, live, tw, tc)
     torch.cuda.synchronize()
-    truth = torch.isin(probe[:, 0], build[:, 0]) if k == 1 else None
+    truth = (torch.isin(probe[:, 0], build[:, 0]) & live if k == 1
+             else None)
     if not (torch.equal(found, pfound) and torch.equal(found, found2)):
         raise AssertionError(f"{label}: found flags differ from plain")
     if truth is not None and not torch.equal(found, truth):
@@ -623,12 +769,16 @@ def check_probe_lookup(shape, iters: int = 20) -> dict:
     if not (torch.equal(slot[found], pslot[found])
             and torch.equal(slot, slot2)):
         raise AssertionError(f"{label}: found slots differ from plain")
-    # PagesHash ranges over the table: 1 to 4 build rows per key
-    gen = torch.Generator(device="cuda").manual_seed(cap)
-    counts = torch.where(
-        tc != H.EMPTY, torch.randint(1, 5, (cap,), generator=gen,
-                                     device="cuda", dtype=torch.int32), 0)
-    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    if shape.get("ranges") is not None:       # the path's own
+        starts, counts = shape["ranges"]
+    else:
+        # PagesHash ranges over the table: 1 to 4 build rows per key
+        gen = torch.Generator(device="cuda").manual_seed(cap)
+        counts = torch.where(
+            tc != H.EMPTY, torch.randint(1, 5, (cap,), generator=gen,
+                                         device="cuda", dtype=torch.int32),
+            0)
+        starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
     got = B2.lookup_ranges(probe, live, tw, tc, starts, counts)
     want = B2.lookup_ranges_reference(probe, live, tw, tc, starts, counts)
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -652,7 +802,7 @@ def check_probe_lookup(shape, iters: int = 20) -> dict:
     table_bytes = cap * (4 + 8 * k)
     gathered = int(torch.unique(slot[found]).numel())
     nbytes = (n * (8 * k + 1 + 16) + gathered * 8
-              + min(table_bytes, n * 2 * SECTOR))
+              + min(table_bytes, int(live.sum()) * 2 * SECTOR))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = _hash_ops(n, k) / INT_OPS_PER_S * 1e3
     return {"shape": label, "n": n, "k": k, "cap": cap,
@@ -844,6 +994,240 @@ def oracle_partkey(li):
     return [(int(k), float(s), int(c)) for k, s, c in zip(keys, sums, cnt)]
 
 
+def _date(days) -> datetime.date:
+    return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(days))
+
+
+def _like(values, pattern: str):
+    """SQL LIKE over a numpy array of strings."""
+    import re
+
+    import numpy as np
+
+    rx = re.compile("".join(".*" if c == "%" else "." if c == "_"
+                            else re.escape(c) for c in pattern), re.S)
+    return np.fromiter((rx.fullmatch(v) is not None for v in values),
+                       dtype=bool, count=len(values))
+
+
+def _lookup(keys, wanted):
+    """Positions of ``wanted`` in the unsorted unique ``keys`` (every
+    wanted key present)."""
+    import numpy as np
+
+    order = np.argsort(keys, kind="stable")
+    return order[np.searchsorted(keys[order], wanted)]
+
+
+def _sums_by(keys, values):
+    """Sorted unique ``keys`` and the sum of ``values`` for each."""
+    import numpy as np
+
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uniq))
+    np.add.at(sums, inv, values)
+    return uniq, sums
+
+
+def _nation_key(scale: float, name: str) -> int:
+    na = table_columns(scale, "nation", ["n_nationkey", "n_name"])
+    return int(na["n_nationkey"][na["n_name"] == name][0])
+
+
+def oracle_q4(scale: float, li):
+    import numpy as np
+
+    od = table_columns(scale, "orders", ["o_orderkey", "o_orderdate",
+                                         "o_orderpriority"])
+    late = np.unique(li["l_orderkey"][li["l_commitdate"]
+                                      < li["l_receiptdate"]])
+    sel = ((od["o_orderdate"] >= _days(1993, 7, 1))
+           & (od["o_orderdate"] < _days(1993, 10, 1))
+           & np.isin(od["o_orderkey"], late))
+    prio, cnt = np.unique(od["o_orderpriority"][sel], return_counts=True)
+    return [(str(p), int(c)) for p, c in zip(prio, cnt)]
+
+
+def oracle_q11(scale: float):
+    import numpy as np
+
+    ps = table_columns(scale, "partsupp", ["ps_partkey", "ps_suppkey",
+                                           "ps_availqty", "ps_supplycost"])
+    su = table_columns(scale, "supplier", ["s_suppkey", "s_nationkey"])
+    supp = su["s_suppkey"][su["s_nationkey"]
+                           == _nation_key(scale, "GERMANY")]
+    sel = np.isin(ps["ps_suppkey"], supp)
+    value = ps["ps_supplycost"][sel] * ps["ps_availqty"][sel]
+    keys, sums = _sums_by(ps["ps_partkey"][sel], value)
+    keep = sums > value.sum() * 0.0001
+    keys, sums = keys[keep], sums[keep]
+    order = np.lexsort((keys, -sums))
+    return [(int(keys[i]), float(sums[i])) for i in order]
+
+
+def oracle_q15(scale: float, li):
+    import numpy as np
+
+    sd = li["l_shipdate"]
+    sel = (sd >= _days(1996, 1, 1)) & (sd < _days(1996, 4, 1))
+    keys, sums = _sums_by(li["l_suppkey"][sel],
+                          li["l_extendedprice"][sel]
+                          * (1.0 - li["l_discount"][sel]))
+    top = np.nonzero(sums == sums.max())[0]
+    su = table_columns(scale, "supplier", ["s_suppkey", "s_name",
+                                           "s_address", "s_phone"])
+    pos = _lookup(su["s_suppkey"], keys[top])
+    return [(int(keys[t]), str(su["s_name"][p]), str(su["s_address"][p]),
+             str(su["s_phone"][p]), float(sums[t]))
+            for t, p in zip(top, pos)]
+
+
+def oracle_q16(scale: float):
+    import numpy as np
+
+    pa = table_columns(scale, "part", ["p_partkey", "p_brand", "p_type",
+                                       "p_size"])
+    ps = table_columns(scale, "partsupp", ["ps_partkey", "ps_suppkey"])
+    su = table_columns(scale, "supplier", ["s_suppkey", "s_comment"])
+    bad = su["s_suppkey"][_like(su["s_comment"], "%Customer%Complaints%")]
+    psel = ((pa["p_brand"] != "Brand#45")
+            & ~_like(pa["p_type"], "MEDIUM POLISHED%")
+            & np.isin(pa["p_size"], [49, 14, 23, 45, 19, 3, 36, 9]))
+    pos = _lookup(pa["p_partkey"], ps["ps_partkey"])
+    keep = psel[pos] & ~np.isin(ps["ps_suppkey"], bad)
+    groups = {}
+    for p, sk in zip(pos[keep], ps["ps_suppkey"][keep]):
+        key = (str(pa["p_brand"][p]), str(pa["p_type"][p]),
+               int(pa["p_size"][p]))
+        groups.setdefault(key, set()).add(int(sk))
+    rows = [k + (len(v),) for k, v in groups.items()]
+    return sorted(rows, key=lambda r: (-r[3], r[0], r[1], r[2]))
+
+
+def oracle_q18(scale: float, li):
+    import numpy as np
+
+    keys, qty = _sums_by(li["l_orderkey"], li["l_quantity"])
+    big = qty > 300
+    od = table_columns(scale, "orders", ["o_orderkey", "o_custkey",
+                                         "o_orderdate", "o_totalprice"])
+    cu = table_columns(scale, "customer", ["c_custkey", "c_name"])
+    opos = _lookup(od["o_orderkey"], keys[big])
+    order = np.lexsort((od["o_orderdate"][opos],
+                        -od["o_totalprice"][opos]))[:100]
+    cpos = _lookup(cu["c_custkey"], od["o_custkey"][opos])
+    return [(str(cu["c_name"][cpos[i]]), int(od["o_custkey"][opos[i]]),
+             int(od["o_orderkey"][opos[i]]),
+             _date(od["o_orderdate"][opos[i]]),
+             float(od["o_totalprice"][opos[i]]), float(qty[big][i]))
+            for i in order]
+
+
+def oracle_q20(scale: float, li):
+    import numpy as np
+
+    pa = table_columns(scale, "part", ["p_partkey", "p_name"])
+    forest = pa["p_partkey"][_like(pa["p_name"], "forest%")]
+    sd = li["l_shipdate"]
+    sel = (sd >= _days(1994, 1, 1)) & (sd < _days(1995, 1, 1))
+    span = int(li["l_suppkey"].max()) + 1
+    keys, qty = _sums_by(li["l_partkey"][sel] * span
+                         + li["l_suppkey"][sel], li["l_quantity"][sel])
+    ps = table_columns(scale, "partsupp", ["ps_partkey", "ps_suppkey",
+                                           "ps_availqty"])
+    pk = ps["ps_partkey"] * span + ps["ps_suppkey"]
+    pos = np.clip(np.searchsorted(keys, pk), 0, len(keys) - 1)
+    # no lineitem rows: the scalar subquery is NULL and the row drops
+    found = keys[pos] == pk
+    ok = (np.isin(ps["ps_partkey"], forest) & found
+          & (ps["ps_availqty"] > 0.5 * qty[pos]))
+    su = table_columns(scale, "supplier", ["s_suppkey", "s_name",
+                                           "s_address", "s_nationkey"])
+    s_sel = ((su["s_nationkey"] == _nation_key(scale, "CANADA"))
+             & np.isin(su["s_suppkey"], ps["ps_suppkey"][ok]))
+    return sorted((str(n), str(a)) for n, a in
+                  zip(su["s_name"][s_sel], su["s_address"][s_sel]))
+
+
+def oracle_q21(scale: float, li):
+    import numpy as np
+
+    ok, sk = li["l_orderkey"], li["l_suppkey"]
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    uniq, inv = np.unique(ok, return_inverse=True)
+    big = np.iinfo(np.int64).max
+    lo, hi = np.full(len(uniq), big), np.full(len(uniq), -1)
+    np.minimum.at(lo, inv, sk)
+    np.maximum.at(hi, inv, sk)
+    late_lo, late_hi = np.full(len(uniq), big), np.full(len(uniq), -1)
+    np.minimum.at(late_lo, inv[late], sk[late])
+    np.maximum.at(late_hi, inv[late], sk[late])
+    od = table_columns(scale, "orders", ["o_orderkey", "o_orderstatus"])
+    status = od["o_orderstatus"][_lookup(od["o_orderkey"], ok)]
+    su = table_columns(scale, "supplier", ["s_suppkey", "s_name",
+                                           "s_nationkey"])
+    saudi = su["s_suppkey"][su["s_nationkey"]
+                            == _nation_key(scale, "SAUDI ARABIA")]
+    # exists: the order has a line of another supplier; not exists: no
+    # late line of another supplier (l1 is late itself)
+    other = ~((lo[inv] == sk) & (hi[inv] == sk))
+    no_late_other = (late_lo[inv] == sk) & (late_hi[inv] == sk)
+    sel = (late & (status == "F") & np.isin(sk, saudi) & other
+           & no_late_other)
+    names = su["s_name"][_lookup(su["s_suppkey"], sk[sel])]
+    name, cnt = np.unique(names, return_counts=True)
+    rows = [(str(n), int(c)) for n, c in zip(name, cnt)]
+    return sorted(rows, key=lambda r: (-r[1], r[0]))[:100]
+
+
+def oracle_q22(scale: float):
+    import numpy as np
+
+    cu = table_columns(scale, "customer", ["c_custkey", "c_phone",
+                                           "c_acctbal"])
+    od = table_columns(scale, "orders", ["o_custkey"])
+    code = np.asarray([p[:2] for p in cu["c_phone"]], dtype=object)
+    incode = np.isin(code, ["13", "31", "23", "29", "30", "18", "17"])
+    bal = cu["c_acctbal"]
+    pos = (bal > 0.0) & incode
+    avg = bal[pos].sum() / pos.sum()
+    sel = incode & (bal > avg) & ~np.isin(cu["c_custkey"],
+                                          np.unique(od["o_custkey"]))
+    codes, sums = _sums_by(code[sel].astype(str), bal[sel])
+    cnt = np.unique(code[sel].astype(str), return_counts=True)[1]
+    return [(str(c), int(n), float(v)) for c, n, v in zip(codes, cnt, sums)]
+
+
+def rows_match_ties(got, want, label: str, order_cols) -> None:
+    """``rows_match`` where rows whose ORDER BY columns tie may come in
+    any order: each run of tied rows in ``want`` is compared as a set
+    (both sides sorted by their exact, non-float columns)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows, want {len(want)}")
+
+    def same(a, b):
+        for c in order_cols:
+            x, y = a[c], b[c]
+            if isinstance(y, float):
+                if abs(x - y) > 1e-9 * max(abs(y), 1e-300):
+                    return False
+            elif x != y:
+                return False
+        return True
+
+    def exact(r):
+        return tuple(str(x) for x in r if not isinstance(x, float))
+
+    i = 0
+    while i < len(want):
+        j = i + 1
+        while j < len(want) and same(want[j], want[i]):
+            j += 1
+        rows_match(sorted(got[i:j], key=exact), sorted(want[i:j], key=exact),
+                   f"{label} rows {i}-{j}")
+        i = j
+
+
 def rows_match(got, want, label: str) -> None:
     if len(got) != len(want):
         raise AssertionError(f"{label}: {len(got)} rows, want {len(want)}")
@@ -950,6 +1334,95 @@ class B2Rows:
         return out
 
 
+def launch_rows(args):
+    return (args[0].shape[0],)
+
+
+def insert_load(args):
+    """An insert's (keys the table held before it, rows)."""
+    from presto_tpu_torch.ops import hashtable as H
+
+    return (int((args[3] != H.EMPTY).sum()), args[0].shape[0])
+
+
+class PathInputs:
+    """Keeps a copy of the inputs of one launch a kernel in a run, the one
+    ``score`` ranks highest (default: the most rows), by wrapping the
+    wrappers the tiers call: B1's ``direct_segment_sums`` as
+    ops/groupby.py calls it, B2's ``insert_claims`` (the table copied
+    before the insert fills it) and ``lookup_ranges`` (with the PagesHash
+    ranges).  ``take`` hands them over as {kernel: (score, args)} and
+    forgets them."""
+
+    def __init__(self):
+        self.kept = {}
+        self._undo = []
+
+    def wrap(self, module, name: str, kernel: str,
+             score=launch_rows) -> None:
+        real = getattr(module, name)
+
+        def copy(obj):
+            if isinstance(obj, (list, tuple)):
+                return type(obj)(copy(o) for o in obj)
+            return obj.clone() if hasattr(obj, "clone") else obj
+
+        def spy(*args):
+            if args[0].is_cuda and args[0].shape[0] > 0:
+                rank = score(args)
+                if kernel not in self.kept or rank > self.kept[kernel][0]:
+                    self.kept[kernel] = (rank, copy(args))
+            return real(*args)
+
+        setattr(module, name, spy)
+        self._undo.append((module, name, real))
+
+    def restore(self) -> None:
+        for module, name, real in reversed(self._undo):
+            setattr(module, name, real)
+        self._undo = []
+
+    def take(self) -> dict:
+        out, self.kept = self.kept, {}
+        return out
+
+
+def path_checks(inputs: dict) -> dict:
+    """Each kernel at the inputs ``PathInputs`` kept on each query path
+    (its largest launch; for B2's insert also the launch into the
+    fullest table, under ``<path>_loaded``, where that is another
+    launch), held against its plain version and timed as in phase 2:
+    {kernel: {path: check row}}."""
+    from presto_tpu_torch.ops import hashtable as H
+
+    out = {"b1": {}, "insert": {}, "lookup": {}}
+    for path, kept in inputs.items():
+        if "b1" in kept:
+            gid, cols, g = kept["b1"][1]
+            out["b1"][path] = check_segment_sums(path, gid, cols, g)
+        inserts = [(path, kept.get("insert"))]
+        if "insert_loaded" in kept:
+            (held, rows), _args = kept["insert_loaded"]
+            largest = kept["insert"][1]
+            if (rows, held) != (largest[0].shape[0],
+                                int((largest[3] != H.EMPTY).sum())):
+                inserts.append((f"{path}_loaded", kept["insert_loaded"]))
+        for label, pick in inserts:
+            if pick is None:
+                continue
+            keys, live, tw, tc = pick[1]
+            out["insert"][label] = check_probe_insert(dict(
+                label=label, mode="insert", keys=keys, live=live,
+                cap=tc.shape[0], prefill=None, table=(tw, tc)))
+        if "lookup" in kept:
+            keys, live, tw, tc, starts, counts = kept["lookup"][1]
+            out["lookup"][path] = check_probe_lookup(dict(
+                label=path, mode="lookup", keys=keys, live=live,
+                cap=tc.shape[0], build=tw[tc != H.EMPTY], table=(tw, tc),
+                ranges=(starts, counts)))
+    return out
+
+
 def timed(runner, sql: str):
     import torch
 
@@ -967,6 +1440,102 @@ def op_tiers(runner, operator: str):
 
 def agg_tiers(runner):
     return op_tiers(runner, "HashAggregation")
+
+
+def semi_oracles(scale: float, li) -> dict:
+    return {"q4": oracle_q4(scale, li), "q11": oracle_q11(scale),
+            "q15": oracle_q15(scale, li), "q16": oracle_q16(scale),
+            "q18": oracle_q18(scale, li), "q20": oracle_q20(scale, li),
+            "q21": oracle_q21(scale, li), "q22": oracle_q22(scale)}
+
+
+# paths whose cold run must launch a kernel: Q4's GROUP BY takes the
+# direct tier (5 priorities: B1); the semi builds of Q18 and Q20 hold well
+# under device_join_probe_max_build_rows, so they take PagesHash (B2
+# insert and lookup)
+SEMI_MUST_LAUNCH = {"q4": ("b1",), "q18": ("insert", "lookup"),
+                    "q20": ("insert", "lookup")}
+
+
+def scanned_rows(runner, scale: float, sql: str) -> int:
+    """The rows of every table scan in the query's plan."""
+    import re
+
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+
+    conn = TpchConnector(scale=scale)
+    return sum(conn.row_count(t) for t in
+               re.findall(r"TableScan tpch\.(\w+)", runner.explain(sql)))
+
+
+def semi_phase(runner, scale: float, card: str, want: dict,
+               modules) -> dict:
+    """Phase 4: the queries of ``SQL_QUERIES`` on the card against their
+    numpy oracles (ties in the ORDER BY columns compared as sets), one
+    cold and two warm runs each, the same bits on every run, the semi and
+    anti probes' inputs on cuda, and each query's own kernel launches and
+    join tiers.  Each ``sql`` line's ``rows`` are the rows of every table
+    scan of the plan.  One more run of each, which no wall reads, keeps
+    the inputs of each kernel's largest launch and of B2's insert into
+    the fullest table (``PathInputs``).  Returns
+    the launches by path and those inputs by path."""
+    S, B2, H, J, G = modules
+    spy = DeviceSpy()
+    for name in ("semi_mask", "anti_keep_from_parts", "any_pair_passes"):
+        spy.wrap(J, name, "semi")
+    spy.wrap(H, "pages_hash_probe", "join")
+    spy.wrap(J, "probe_counts", "join")
+    launches, tiers, walls, results, kept = {}, {}, {}, {}, {}
+    keep = PathInputs()
+    for label, sql in SQL_QUERIES.items():
+        S.LAUNCHES.reset()
+        B2.INSERT_LAUNCHES.reset()
+        B2.LOOKUP_LAUNCHES.reset()
+        res, wall = timed(runner, sql)
+        launches[label] = {"b1": S.LAUNCHES.count,
+                           "insert": B2.INSERT_LAUNCHES.count,
+                           "lookup": B2.LOOKUP_LAUNCHES.count}
+        tiers[label] = [s.kernel_tier
+                        for s in runner._last_task.operator_stats
+                        if "LookupJoin" in s.operator]
+        # every plan probes a hash join on the card; the semi/anti masks
+        # run in all but Q11 and Q15 (no semi join, a scalar subquery)
+        inputs = ["join"] if label in ("q11", "q15") else ["join", "semi"]
+        spy.check(inputs)
+        walls[label] = [wall]
+        results[label] = [res.rows]
+        for _ in range(2):
+            res, wall = timed(runner, sql)
+            walls[label].append(wall)
+            results[label].append(res.rows)
+        spy.check(inputs)
+        keep.wrap(G, "direct_segment_sums", "b1")
+        keep.wrap(B2, "insert_claims", "insert")
+        keep.wrap(B2, "insert_claims", "insert_loaded", insert_load)
+        keep.wrap(B2, "lookup_ranges", "lookup")
+        results[label].append(runner.execute(sql).rows)
+        keep.restore()
+        kept[label] = keep.take()
+        for rows in results[label]:
+            rows_match_ties(rows, want[label], label,
+                            SQL_ORDER_COLUMNS[label])
+        if any(r != results[label][0] for r in results[label][1:]):
+            raise AssertionError(f"{label}: runs differ in their bits")
+        for kind in SEMI_MUST_LAUNCH.get(label, ()):
+            if launches[label][kind] < 1:
+                raise AssertionError(f"{label} ran without a {kind} launch: "
+                                     f"{launches[label]}, joins "
+                                     f"{tiers[label]}")
+        w = walls[label]
+        n_rows = scanned_rows(runner, scale, sql)
+        print("sql " + json.dumps({
+            "query": label, "scale": scale, "rows": n_rows,
+            "result_rows": len(results[label][0]), "cold_s": w[0],
+            "warm_s": min(w[1:]), "warm_rows_per_s": n_rows / min(w[1:]),
+            "join_tiers": tiers[label], "launches": launches[label],
+            "card": card}), flush=True)
+    spy.restore()
+    return launches, kept
 
 
 def main() -> int:
@@ -1001,7 +1570,8 @@ def main() -> int:
         print(f"nvcc[{name}]: {log.strip()}", flush=True)
 
     # -- phase 2: kernels against their plain versions --------------------
-    checks = [check_segment_sums(label, n, g, a, args.seed + i, odd)
+    checks = [check_segment_sums(label, *b1_inputs(n, g, a, args.seed + i,
+                                                   odd), g)
               for i, (label, n, g, a, odd) in enumerate(B1_SHAPES)]
     for c in checks:
         print("segment_sums " + json.dumps(c), flush=True)
@@ -1021,11 +1591,13 @@ def main() -> int:
     t0 = time.perf_counter()
     names = ["l_returnflag", "l_linestatus", "l_quantity",
              "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
-             "l_orderkey", "l_partkey"]
+             "l_orderkey", "l_partkey", "l_suppkey", "l_commitdate",
+             "l_receiptdate"]
     cols = lineitem_columns(args.scale, names)
     want = {"q1": oracle_q1(cols), "q6": oracle_q6(cols),
             "q3": oracle_q3(args.scale, cols),
             "partkey": oracle_partkey(cols)}
+    want.update(semi_oracles(args.scale, cols))
     n_rows = len(cols["l_shipdate"])
     del cols
     print(f"oracle: {n_rows} lineitem rows in "
@@ -1132,13 +1704,34 @@ def main() -> int:
             "cold_s": w[0], "warm_s": warm,
             "warm_rows_per_s": n_rows / warm, "card": card}), flush=True)
 
-    def entry(name, source, replaces, launches, c):
+    # -- phase 4: this slice's queries (semi and anti joins, the cross
+    # join against a scalar subquery), each path cold with the counts set
+    # to 0 just before it and read just after, then warm twice
+    semi_launches, semi_inputs = semi_phase(runner, args.scale, card, want,
+                                            (S, B2, H, J, G))
+
+    # -- phase 5: each kernel at the inputs phase 4 kept on each path,
+    # against its plain version, with its times
+    by_path = path_checks(semi_inputs)
+    del semi_inputs
+    for kernel, line in (("b1", "segment_sums"), ("insert", "probe_insert"),
+                         ("lookup", "probe_lookup")):
+        for path, c in by_path[kernel].items():
+            print(f"{line} " + json.dumps(dict(c, path=path)), flush=True)
+    for path, c in semi_launches.items():
+        for kernel, n in c.items():
+            if n > 0 and path not in by_path[kernel]:
+                raise AssertionError(f"{path}: {n} {kernel} launches, no "
+                                     "inputs kept")
+
+    def entry(name, source, replaces, launches, c, paths):
         """``launches``: {path: count of that path's own run}; the key
         ``launches`` is the count on this slice's main path (Q3), or Q1's
         for B1.  ``ms`` is ``kernel_ms``, the device time from a CUDA
         graph (B2's lookup's in the (lo, cnt) mode the path runs), with
         ``wrapper_ms`` (the call), and ``library_device_ms`` (B2) or
-        ``library_mm_ms`` (B1) beside it."""
+        ``library_mm_ms`` (B1) beside it.  ``paths``: phase 5's checks of
+        the kernel at each phase-4 path's inputs, under ``by_path``."""
         main = launches.get("q3", launches.get("q1"))
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": main,
@@ -1150,19 +1743,32 @@ def main() -> int:
                     "library_device_ms", "library_mm_ms"):
             if key in c:
                 out[key] = c[key]
+        out["by_path"] = {
+            path: {key: p[key] for key in (
+                "n", "g", "a", "k", "cap", "live", "prefilled", "build",
+                "max_abs_err", "kernel_ms", "wrapper_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by") if key in p}
+            for path, p in paths.items()}
         return out
 
+    b1_by_path = {"q1": b1_launches}
+    insert_by_path = {p: c["insert"] for p, c in b2_launches.items()}
+    lookup_by_path = {p: c["lookup"] for p, c in b2_launches.items()}
+    for p, c in semi_launches.items():
+        b1_by_path[p] = c["b1"]
+        insert_by_path[p] = c["insert"]
+        lookup_by_path[p] = c["lookup"]
     kernels = [
         entry("direct_segment_sums",
               "presto_tpu_torch/csrc/segment_sums.cu",
-              "presto_tpu/ops/pallas_groupby.py:48", {"q1": b1_launches},
-              checks[0]),
+              "presto_tpu/ops/pallas_groupby.py:48", b1_by_path, checks[0],
+              by_path["b1"]),
         entry("probe_insert", "presto_tpu_torch/csrc/probe_insert.cu",
-              "presto_tpu/ops/pallas_hash.py:44",
-              {p: c["insert"] for p, c in b2_launches.items()}, inserts[0]),
+              "presto_tpu/ops/pallas_hash.py:44", insert_by_path,
+              inserts[0], by_path["insert"]),
         entry("probe_lookup", "presto_tpu_torch/csrc/probe_insert.cu",
-              "presto_tpu/ops/pallas_hash.py:44",
-              {p: c["lookup"] for p, c in b2_launches.items()}, lookups[0]),
+              "presto_tpu/ops/pallas_hash.py:44", lookup_by_path,
+              lookups[0], by_path["lookup"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -321,6 +321,46 @@ def batch_from_arrays(columns, device) -> Batch:
     return Batch(tuple(cols), n or 0).to_device(device)
 
 
+def column_from_pylist(typ: T.Type, values: Sequence[Any]) -> Column:
+    """A host Column from Python values (None == NULL): the BlockBuilder
+    role for the flat types (nested ones are ROADMAP A5)."""
+    n = len(values)
+    valid = None
+    if any(v is None for v in values):
+        valid = np.fromiter((v is not None for v in values), dtype=bool,
+                            count=n)
+    if typ.is_dictionary:
+        dictionary = Dictionary()
+        codes = np.fromiter(
+            (dictionary.intern(v) if v is not None else 0 for v in values),
+            dtype=np.int32, count=n)
+        return Column(typ, codes, valid, dictionary)
+    storage = np.zeros(n, dtype=typ.np_dtype)
+    for i, v in enumerate(values):
+        if v is not None:
+            storage[i] = typ.from_python(v)
+    return Column(typ, storage, valid)
+
+
+def batch_from_pylist(schema: Sequence[T.Type],
+                      rows: Sequence[Sequence[Any]], device) -> Batch:
+    """A Batch on ``device`` from rows of Python values (a VALUES list;
+    the RowPagesBuilder role)."""
+    cols = tuple(column_from_pylist(typ, [r[i] for r in rows])
+                 for i, typ in enumerate(schema))
+    return Batch(cols, len(rows)).to_device(device)
+
+
+def null_column(typ: T.Type, n: int, device) -> Column:
+    """``n`` NULLs of ``typ`` as tensors on ``device``."""
+    from presto_tpu_torch.expr.xp import torch_dtype
+
+    values = torch.zeros(n, dtype=torch_dtype(typ.np_dtype), device=device)
+    dictionary = Dictionary() if typ.is_dictionary else None
+    return Column(typ, values, torch.zeros(n, dtype=torch.bool,
+                                           device=device), dictionary)
+
+
 def _concat_columns(cols: Sequence[Column],
                     row_counts: Sequence[int]) -> Column:
     """Concatenate row-count-exact host columns of one channel."""

@@ -422,14 +422,16 @@ class HashAggregationOperatorFactory(OperatorFactory):
 
 
 class GlobalAggregationOperator(Operator):
-    """Ungrouped aggregation: exactly one output row, even on empty input."""
+    """Ungrouped aggregation: exactly one output row, even on empty input,
+    on the query's device."""
 
     def __init__(self, ctx: OperatorContext, aggs: Sequence[AggChannel],
-                 input_types: Sequence[T.Type]):
+                 input_types: Sequence[T.Type], device: torch.device):
         super().__init__(ctx)
         _check_prims(aggs)
         self.aggs = list(aggs)
         self.input_types = list(input_types)
+        self.device = device
         self._batches: List[Batch] = []
         self._output: Optional[Batch] = None
 
@@ -457,7 +459,7 @@ class GlobalAggregationOperator(Operator):
                     cols.append(Column(a.out_type,
                                        np.zeros(1, a.out_type.np_dtype),
                                        np.zeros(1, bool), dictionary))
-            self._output = Batch(tuple(cols), 1)
+            self._output = Batch(tuple(cols), 1).to_device(self.device)
             return
         agg_ins, posts = _agg_inputs(self.aggs, data)
         if any(values is None for _p, values, _v in agg_ins):
@@ -481,7 +483,7 @@ class GlobalAggregationOperator(Operator):
                 a.out_type,
                 np.asarray([value.item()], a.out_type.np_dtype),
                 None if nonempty else np.zeros(1, bool), dictionary))
-        self._output = Batch(tuple(cols), 1)
+        self._output = Batch(tuple(cols), 1).to_device(self.device)
 
     def get_output(self) -> Optional[Batch]:
         out, self._output = self._output, None
@@ -492,9 +494,11 @@ class GlobalAggregationOperator(Operator):
 
 
 class GlobalAggregationOperatorFactory(OperatorFactory):
-    def __init__(self, aggs, input_types):
+    def __init__(self, aggs, input_types, device):
         self.aggs = list(aggs)
         self.input_types = list(input_types)
+        self.device = torch.device(device)
 
     def create(self, ctx: OperatorContext) -> GlobalAggregationOperator:
-        return GlobalAggregationOperator(ctx, self.aggs, self.input_types)
+        return GlobalAggregationOperator(ctx, self.aggs, self.input_types,
+                                         self.device)

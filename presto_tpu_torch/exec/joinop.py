@@ -1,9 +1,9 @@
 """Hash join operators: build and probe sharing a LookupSource.
 
 Reference models: HashBuilderOperator.java:51 (build side ->
-PartitionedLookupSourceFactory) and LookupJoinOperator.java:64 (probe),
-with the inner and probe-outer (left) variants of
-LookupJoinOperators.java:45-60.
+PartitionedLookupSourceFactory), LookupJoinOperator.java:64 (probe) and
+HashSemiJoinOperator (semi), with the inner, probe-outer (left), semi and
+anti variants of LookupJoinOperators.java:45-60.
 
 The LookupSource is chosen at build finish, as the JAX package's
 accelerator branch chooses it (``presto_tpu/exec/joinop.py:246-353``):
@@ -21,10 +21,16 @@ accelerator branch chooses it (``presto_tpu/exec/joinop.py:246-353``):
 Every tier streams the probe: per probe batch, match ranges (lo, counts)
 -> the exact output size -> one expansion -> gathers.  Within one probe
 row, build rows of a key come out in build input order on every tier.
+A semi or anti join keeps probe rows by a mask over the same (lo, counts):
+one host read per probe batch (the selected count).  With a residual (a
+correlated EXISTS / NOT EXISTS) the candidate pairs are expanded, in
+chunks of probe rows when they are many, and the residual decides which
+pass.  Every build records whether a live row has a NULL key (NOT IN's
+three-valued logic).
 
-The ``canonical`` tier (a union sort of both sides' keys), the semi and
-anti joins, the spilled (grace) build and grouped execution are ROADMAP
-A4 and raise ``NotImplementedError``.
+The ``canonical`` tier (a union sort of both sides' keys), the spilled
+(grace) build and grouped execution are ROADMAP A4 and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,12 +42,12 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.batch import Batch, Column, Dictionary
+from presto_tpu_torch.batch import Batch, Column, null_column
 from presto_tpu_torch.exec.context import OperatorContext
 from presto_tpu_torch.exec.operator import (
     Operator, OperatorFactory, device_concat,
 )
-from presto_tpu_torch.expr.xp import torch_dtype
+from presto_tpu_torch.ops.join import BuildRanges
 
 
 def _is_single_word_type(t: T.Type) -> bool:
@@ -68,6 +74,10 @@ class LookupSource:
     # index ``perm`` — the PagesHash role proper
     pages: Optional[tuple] = None
     key_types: Optional[tuple] = None     # probe-normalization types
+    # device bool scalar: a live build row has a NULL key (NOT IN)
+    has_null_key: Optional[torch.Tensor] = None
+    # single/packed: the sorted ids' live range, read once at build
+    ranges: Optional[BuildRanges] = None
 
 
 class LookupSourceFactory:
@@ -94,6 +104,23 @@ def _dead_rows(pairs, num_rows: int) -> torch.Tensor:
         if valid is not None:
             dead = dead | ~valid
     return dead
+
+
+# a residual join expands at most this many candidate pairs at once (plus
+# those of a chunk's first probe row)
+RESIDUAL_CHUNK_PAIRS = 1 << 22
+
+
+def _has_null_key(pairs, num_rows: int) -> torch.Tensor:
+    """Device bool scalar: does a live row have a NULL key?  From the key
+    validity, never from the ids (an id is also dead for padding)."""
+    values = pairs[0][0]
+    in_row = torch.arange(values.shape[0], device=values.device) < num_rows
+    has = torch.zeros((), dtype=torch.bool, device=values.device)
+    for _values, valid in pairs:
+        if valid is not None:
+            has = has | (in_row & ~valid).any()
+    return has
 
 
 def _build_index_single(values: torch.Tensor, valid, num_rows: int):
@@ -178,8 +205,6 @@ class HashBuildOperator(Operator):
             self.f.lookup.set(LookupSource("empty", None, None, None, 0,
                                            chans))
             return
-        if data.device is None:      # a host batch (a global agg row)
-            data = data.to_device("cpu")
         n_build = data.num_rows
         key_pairs = [(data.columns[c].values, data.columns[c].valid)
                      for c in chans]
@@ -207,7 +232,9 @@ class HashBuildOperator(Operator):
             if not span_big:
                 self.f.lookup.set(LookupSource(
                     "single", sb, perm, data, n_build, chans,
-                    mins=np.asarray([bmin], np.int64)))
+                    mins=np.asarray([bmin], np.int64),
+                    has_null_key=_has_null_key(key_pairs, n_build),
+                    ranges=BuildRanges(sb)))
                 return
         if packable:
             # pack multi-channel integer keys using build-side ranges
@@ -226,7 +253,9 @@ class HashBuildOperator(Operator):
                                                n_build)
                 self.f.lookup.set(LookupSource(
                     "packed", sb, perm, data, n_build, chans, mins=los,
-                    strides=strides_a, maxs=his))
+                    strides=strides_a, maxs=his,
+                    has_null_key=_has_null_key(key_pairs, n_build),
+                    ranges=BuildRanges(sb)))
                 return
         # key spans overflowed the single/packed id arithmetic: the hash
         # table still streams such keys (equality needs no ids)
@@ -249,13 +278,16 @@ class HashBuildOperator(Operator):
         ktypes = tuple(data.columns[c].type for c in chans)
         kc = [(v, valid, t) for (v, valid), t in zip(key_pairs, ktypes)]
         for cap in (table_cap, 4 * table_cap):
-            (tw, tctrl, starts, counts, perm, _has_null,
+            # null-key rows are dead rows of the table: has_null comes
+            # from the key validity
+            (tw, tctrl, starts, counts, perm, has_null,
              ok) = pages_hash_build(kc, n_build, cap)
             if ok:
                 self.ctx.stats.kernel_tier = "hash"
                 self.f.lookup.set(LookupSource(
                     "hash", None, perm, data, n_build, chans,
-                    pages=(tw, tctrl, starts, counts), key_types=ktypes))
+                    pages=(tw, tctrl, starts, counts), key_types=ktypes,
+                    has_null_key=has_null))
                 return True
         return False
 
@@ -304,24 +336,17 @@ def _ids_from_pairs(pairs, key_channels, src: LookupSource,
     return torch.where(dead, -1, ids)
 
 
-def _null_column(typ: T.Type, n: int, device) -> Column:
-    """``n`` NULLs of ``typ`` on ``device`` (a left join's unmatched
-    build side against an empty build)."""
-    values = torch.zeros(n, dtype=torch_dtype(typ.np_dtype), device=device)
-    dictionary = Dictionary() if typ.is_dictionary else None
-    return Column(typ, values, torch.zeros(n, dtype=torch.bool,
-                                           device=device), dictionary)
-
-
 class LookupJoinOperator(Operator):
     """Probe side.  Output layout: all probe channels, then all build
-    channels (the planner projects away what it does not need)."""
+    channels (the planner projects away what it does not need); a semi or
+    anti join emits the probe channels only."""
 
     def __init__(self, ctx: OperatorContext,
                  factory: "LookupJoinOperatorFactory"):
         super().__init__(ctx)
         self.f = factory
         self._out: List[Batch] = []
+        self._residuals = {}   # dictionary binding -> compiled residual
 
     def close(self) -> None:
         super().close()
@@ -330,12 +355,23 @@ class LookupJoinOperator(Operator):
     def add_input(self, batch: Batch) -> None:
         self.ctx.stats.input_rows += batch.num_rows
         src = self.f.build.lookup.get()
-        out = self._probe_streaming(src, batch)
+        if src.data is not None and batch.device != src.data.device:
+            raise ValueError(f"probe rows on {batch.device} meet a build "
+                             f"on {src.data.device}")
+        if not self.ctx.stats.kernel_tier:
+            self.ctx.stats.kernel_tier = (
+                "hash" if src.mode == "hash" else "sorted")
+        if self.f.join_type in ("semi", "anti"):
+            out = self._probe_filter(src, batch)
+        else:
+            out = self._probe_streaming(src, batch)
         if out is not None and out.num_rows > 0:
+            self.ctx.stats.output_rows += out.num_rows
             self._out.append(out)
 
     def _lo_counts(self, src: LookupSource, batch: Batch):
-        """Per-probe-row match range into ``src.perm``."""
+        """Per-probe-row match range into ``src.perm``, and which rows
+        could match at all (non-null keys, in range)."""
         from presto_tpu_torch.ops import join as J
 
         chans = self.f.probe_key_channels
@@ -345,11 +381,11 @@ class LookupJoinOperator(Operator):
 
             kc = [(pairs[c][0], pairs[c][1], src.key_types[i])
                   for i, c in enumerate(chans)]
-            lo, counts, _live = pages_hash_probe(src.pages, kc,
-                                                 batch.num_rows)
-            return lo, counts
+            return pages_hash_probe(src.pages, kc, batch.num_rows)
         ids = _ids_from_pairs(pairs, chans, src, batch.num_rows)
-        return J.probe_counts(src.sorted_ids, src.perm, ids)
+        lo, counts = J.probe_counts(src.sorted_ids, src.perm, ids,
+                                    src.ranges)
+        return lo, counts, ids >= 0
 
     def _probe_streaming(self, src: LookupSource,
                          batch: Batch) -> Optional[Batch]:
@@ -358,19 +394,14 @@ class LookupJoinOperator(Operator):
         join_type = self.f.join_type
         n = batch.num_rows
         device = batch.device
-        if not self.ctx.stats.kernel_tier:
-            self.ctx.stats.kernel_tier = (
-                "hash" if src.mode == "hash" else "sorted")
         if src.mode == "empty":
             if join_type == "inner":
                 return None
             cols = [c.head(n) for c in batch.columns]
-            cols += [_null_column(t, n, device)
+            cols += [null_column(t, n, device)
                      for t in self.f.build.input_types]
-            out = Batch(tuple(cols), n)
-            self.ctx.stats.output_rows += n
-            return out
-        lo, counts = self._lo_counts(src, batch)
+            return Batch(tuple(cols), n)
+        lo, counts, _live = self._lo_counts(src, batch)
         if join_type == "left":
             # every real probe row emits >= 1 row (null-key rows emit the
             # unmatched form)
@@ -378,13 +409,13 @@ class LookupJoinOperator(Operator):
             total = int(torch.where(in_row, torch.clamp(counts, min=1),
                                     0).sum())
             pi, bi, _rv, unmatched, total = J.expand_matches_outer(
-                lo, counts, in_row, src.perm, total)
+                lo, counts, in_row, src.perm, total, total=total)
         else:
             total = int(counts.sum())
             if total == 0:
                 return None
             pi, bi, _rv, unmatched, total = J.expand_matches(
-                lo, counts, src.perm, total)
+                lo, counts, src.perm, total, total=total)
         cols = [Column(c.type, c.values[pi],
                        None if c.valid is None else c.valid[pi],
                        c.dictionary) for c in batch.columns]
@@ -395,9 +426,112 @@ class LookupJoinOperator(Operator):
                                None if join_type == "inner"
                                and c.valid is None else bvalid,
                                c.dictionary))
-        out = Batch(tuple(cols), total)
-        self.ctx.stats.output_rows += total
-        return out
+        return Batch(tuple(cols), total)
+
+    def _probe_filter(self, src: LookupSource,
+                      batch: Batch) -> Optional[Batch]:
+        """Semi/anti join: the probe rows that survive, in order.  Without
+        a residual the one host read is the selected count."""
+        from presto_tpu_torch.ops import join as J
+        from presto_tpu_torch.ops.filter import selected_positions
+
+        anti = self.f.join_type == "anti"
+        n = batch.num_rows
+        in_row = torch.arange(batch.capacity, device=batch.device) < n
+        if src.mode == "empty":
+            # nothing to match: a semi join keeps no row, an anti join
+            # (NOT EXISTS and NOT IN alike) every row
+            if not anti:
+                return None
+            mask = in_row
+        else:
+            lo, counts, live = self._lo_counts(src, batch)
+            if self.f.residual is not None:
+                passes = self._residual_passes(src, batch, lo, counts)
+                # a residual anti join is a correlated NOT EXISTS:
+                # null-key rows never match, so they stay
+                mask = ((live & ~passes) | (~live & in_row) if anti
+                        else live & passes)
+            elif anti:
+                mask = J.anti_keep_from_parts(
+                    counts, live, in_row, self.f.null_aware,
+                    [batch.columns[c].valid
+                     for c in self.f.probe_key_channels],
+                    src.n_build, build_has_null=src.has_null_key)
+            else:
+                mask = J.semi_mask(counts, live)
+        return batch.take(selected_positions(mask, None, n))
+
+    def _residual_compiled(self, src: LookupSource, batch: Batch):
+        """The residual over [probe channels..., build channels...],
+        compiled with both sides' dictionaries
+        (JoinFilterFunctionCompiler role), once per binding."""
+        from presto_tpu_torch.expr.compile import ExprCompiler
+
+        key = (id(src),) + tuple(
+            None if c.dictionary is None else c.dictionary.token
+            for c in batch.columns)
+        hit = self._residuals.get(key)
+        if hit is None:
+            nprobe = batch.num_columns
+            dicts = {i: c.dictionary for i, c in enumerate(batch.columns)
+                     if c.dictionary is not None}
+            for j, c in enumerate(src.data.columns):
+                if c.dictionary is not None:
+                    dicts[nprobe + j] = c.dictionary
+            hit = self._residuals[key] = ExprCompiler(dicts).compile(
+                self.f.residual)
+        return hit
+
+    def _residual_passes(self, src: LookupSource, batch: Batch,
+                         lo: torch.Tensor,
+                         counts: torch.Tensor) -> torch.Tensor:
+        """Per probe row: does any of its candidate pairs pass the
+        residual?  The pairs are expanded in chunks of probe rows, each
+        holding at most ``RESIDUAL_CHUNK_PAIRS`` pairs plus those of its
+        first row, so a large batch never allocates all of its pairs at
+        once."""
+        from presto_tpu_torch.expr.xp import TorchXp
+        from presto_tpu_torch.ops import join as J
+
+        device = batch.device
+        cap = batch.capacity
+        passes = torch.zeros(cap, dtype=torch.bool, device=device)
+        cum = torch.cumsum(counts, 0)
+        total = int(cum[-1]) if cap else 0
+        if total == 0:
+            return passes
+        bound = RESIDUAL_CHUNK_PAIRS
+        if total <= bound:
+            chunks = [(0, cap, total)]
+        else:
+            marks = torch.arange(bound, total, bound, device=device)
+            cuts = torch.cat([
+                torch.zeros(1, dtype=torch.int64, device=device),
+                torch.searchsorted(cum, marks, right=True),
+                torch.full((1,), cap, dtype=torch.int64, device=device)])
+            cum0 = torch.cat([torch.zeros(1, dtype=cum.dtype,
+                                          device=device), cum])
+            starts, ends = cuts[:-1], cuts[1:]
+            sizes = cum0[ends] - cum0[starts]
+            chunks = [c for c in zip(*torch.stack(
+                [starts, ends, sizes]).tolist()) if c[2] > 0]
+        cres = self._residual_compiled(src, batch)
+        xp = TorchXp(device)
+        for a, b, size in chunks:
+            pi, bi, _rv, _u, _t = J.expand_matches(
+                lo[a:b], counts[a:b], src.perm, size, total=size)
+            pi = pi + a
+            pairs = [(c.values[pi], None if c.valid is None
+                      else c.valid[pi]) for c in batch.columns]
+            pairs += [(c.values[bi], None if c.valid is None
+                       else c.valid[bi]) for c in src.data.columns]
+            rmask, rvalid = cres.run(pairs, size, xp)
+            ok = torch.broadcast_to(xp.asarray(rmask), (size,))
+            if rvalid is not None:
+                ok = ok & xp.asarray(rvalid)
+            passes = passes | J.any_pair_passes(pi, ok, cap)
+        return passes
 
     def get_output(self) -> Optional[Batch]:
         if self._out:
@@ -412,17 +546,23 @@ class LookupJoinOperatorFactory(OperatorFactory):
     def __init__(self, build: HashBuildOperatorFactory,
                  probe_key_channels: Sequence[int],
                  probe_types: Sequence[T.Type],
-                 join_type: str = "inner"):
-        # an inner join's residual is a post-join filter the planner adds;
-        # only the semi/anti joins (not ported) take one in the operator
-        if join_type not in ("inner", "left"):
+                 join_type: str = "inner", residual=None,
+                 null_aware: bool = False):
+        """``residual``: a semi/anti join's in-kernel filter over [probe
+        channels..., build channels...] (an inner join's is a post-join
+        filter the planner adds); ``null_aware``: NOT IN's three-valued
+        anti join."""
+        if join_type not in ("inner", "left", "semi", "anti"):
+            raise ValueError(f"unknown join type {join_type}")
+        if residual is not None and join_type not in ("semi", "anti"):
             raise NotImplementedError(
-                f"{join_type} join is not in presto_tpu_torch yet: "
-                "ROADMAP A4 (semi and anti joins)")
+                "residual filters only on semi/anti joins")
         self.build = build
         self.probe_key_channels = list(probe_key_channels)
         self.probe_types = list(probe_types)
         self.join_type = join_type
+        self.residual = residual
+        self.null_aware = null_aware
 
     def create(self, ctx: OperatorContext) -> LookupJoinOperator:
         return LookupJoinOperator(ctx, self)

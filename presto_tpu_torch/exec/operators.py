@@ -1,4 +1,5 @@
-"""Leaf / streaming operators: scan, filter+project, output.
+"""Leaf / streaming operators: scan, values, filter+project, limit,
+output.
 
 Reference models: TableScanOperator.java:46, FilterAndProjectOperator.java:38
 (+ compiled PageProcessor), TaskOutputOperator.java:33.
@@ -87,6 +88,36 @@ class TableScanOperatorFactory(OperatorFactory):
                                  self.batch_rows, self.device)
 
 
+class ValuesOperator(Operator):
+    """Emits batches built at planning time (a VALUES list, the dummy row
+    of a SELECT without FROM)."""
+
+    def __init__(self, ctx: OperatorContext, batches: Sequence[Batch]):
+        super().__init__(ctx)
+        self._batches = list(batches)
+
+    def needs_input(self) -> bool:
+        return False
+
+    def get_output(self) -> Optional[Batch]:
+        if self._batches:
+            batch = self._batches.pop(0)
+            self.ctx.stats.output_rows += batch.num_rows
+            return batch
+        return None
+
+    def is_finished(self) -> bool:
+        return not self._batches
+
+
+class ValuesOperatorFactory(OperatorFactory):
+    def __init__(self, batches: Sequence[Batch]):
+        self.batches = list(batches)
+
+    def create(self, ctx: OperatorContext) -> ValuesOperator:
+        return ValuesOperator(ctx, self.batches)
+
+
 class FilterProjectOperator(Operator):
     """filter -> compact -> project (the PageProcessor replacement), as
     eager torch ops on the batch's device.  Expressions compile once per
@@ -130,10 +161,6 @@ class FilterProjectOperator(Operator):
         if self._pending is None:
             return None
         batch, self._pending = self._pending, None
-        if batch.device is None:
-            # a host batch (a global aggregation's one row): evaluate it
-            # as CPU tensors, so one code path serves every batch
-            batch = batch.to_device("cpu")
         device = batch.device
         xp = TorchXp(device)
         cfilter, cprojs = self._compile(batch)

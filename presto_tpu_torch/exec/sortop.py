@@ -52,8 +52,6 @@ class OrderByOperator(Operator):
         data = device_concat(batches, self.ctx.config.min_batch_capacity)
         if data is None:
             return None
-        if data.device is None:      # a host batch (e.g. a global agg row)
-            data = data.to_device("cpu")
         keys = []
         for s in self.specs:
             c = data.columns[s.channel]

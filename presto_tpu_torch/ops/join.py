@@ -20,8 +20,9 @@ The PagesHash table proper (``ops/hashtable.py pages_hash_build`` /
 
 Eager torch sizes every output exactly: the expansion takes the exact
 output row count, where the JAX package pads to a capacity bucket.  The
-``canonical`` tier (``canonical_ids``, a union sort of both sides' keys)
-and the semi/anti masks are ROADMAP A4.
+semi and anti joins are masks over the probe rows from the same (lo,
+counts) (``semi_mask``, ``anti_keep_from_parts``).  The ``canonical``
+tier (``canonical_ids``, a union sort of both sides' keys) is ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -132,8 +133,49 @@ def _dense_scratch(cap_b: int, cap_p: int) -> int:
     return size
 
 
+class BuildRanges:
+    """A sorted build's dead-row count and live key range, read from the
+    device once (at build finish), and its dense-domain histograms by
+    size, each made on first use.  Handing this to ``probe_counts`` keeps
+    the probe free of host reads."""
+
+    def __init__(self, sorted_build: torch.Tensor):
+        cap_b = sorted_build.shape[0]
+        live_b = sorted_build >= 0
+        if cap_b == 0:
+            self.n_dead, self.bmin, self.bmax = 0, 0, -1
+        else:
+            # dead ids are negative and sort first: the live ones follow
+            self.n_dead, self.bmin, self.bmax = torch.stack([
+                cap_b - live_b.sum(),
+                torch.where(live_b, sorted_build, 1 << 62).min(),
+                sorted_build[-1]]).tolist()
+        self.cap_b = cap_b
+        self.live_b = live_b
+        self.sorted_build = sorted_build
+        self._hists = {}
+
+    def dense(self, size: int):
+        """``(hist, starts)`` over ``size`` slots from the live minimum,
+        or None when the live span does not fit (or nothing is live)."""
+        if self.n_dead >= self.cap_b or self.bmax - self.bmin >= size - 1:
+            return None
+        hit = self._hists.get(size)
+        if hit is None:
+            device = self.sorted_build.device
+            off = torch.where(self.live_b, self.sorted_build - self.bmin,
+                              size)
+            hist = torch.zeros(size + 1, dtype=torch.int32, device=device)
+            hist.index_add_(0, off, torch.ones(self.cap_b, dtype=torch.int32,
+                                               device=device))
+            hist = hist[:size]
+            hit = self._hists[size] = (hist, torch.cumsum(hist, 0) - hist)
+        return hit
+
+
 def probe_counts(sorted_build: torch.Tensor, perm_b: torch.Tensor,
-                 probe_ids: torch.Tensor
+                 probe_ids: torch.Tensor,
+                 ranges: Optional[BuildRanges] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-probe-row match range ``(lo, counts)`` in the sorted build
     order.
@@ -141,31 +183,21 @@ def probe_counts(sorted_build: torch.Tensor, perm_b: torch.Tensor,
     When the live build-key span fits a histogram, match ranges come from
     two gathers into (hist, starts) tensors (the BigintGroupByHash
     dense-path idea applied to the probe); otherwise a vectorized binary
-    search over the sorted build.  One host read picks the strategy."""
-    cap_b = sorted_build.shape[0]
-    device = sorted_build.device
-    live_b = sorted_build >= 0
-    n_dead = int(cap_b - int(live_b.sum()))
+    search over the sorted build.  ``ranges`` (the build's
+    ``BuildRanges``) picks the strategy with no host read; without it
+    one read makes them here."""
+    if ranges is None:
+        ranges = BuildRanges(sorted_build)
     live_p = probe_ids >= 0
-    S = _dense_scratch(cap_b, probe_ids.shape[0])
-    fits = False
-    if n_dead < cap_b:
-        # dead ids are negative and sort first: the live ones follow
-        bmin = int(sorted_build[n_dead])
-        bmax = int(sorted_build[-1])
-        fits = bmax - bmin < S - 1
-    if fits:
-        off = torch.where(live_b, sorted_build - bmin, S)
-        hist = torch.zeros(S + 1, dtype=torch.int32, device=device)
-        hist.index_add_(0, off, torch.ones(cap_b, dtype=torch.int32,
-                                           device=device))
-        hist = hist[:S]
-        starts_d = torch.cumsum(hist, 0) - hist
-        q = probe_ids - bmin
+    S = _dense_scratch(sorted_build.shape[0], probe_ids.shape[0])
+    dense = ranges.dense(S)
+    if dense is not None:
+        hist, starts_d = dense
+        q = probe_ids - ranges.bmin
         in_rng = live_p & (q >= 0) & (q < S)
         qi = torch.clamp(q, 0, S - 1)
         cnt = torch.where(in_rng, hist[qi], 0)
-        lo = torch.where(in_rng, n_dead + starts_d[qi], 0)
+        lo = torch.where(in_rng, ranges.n_dead + starts_d[qi], 0)
         return lo.to(torch.int64), cnt.to(torch.int64)
     lo = _lower_bound(sorted_build, probe_ids, inclusive=False)
     hi = _lower_bound(sorted_build, probe_ids, inclusive=True)
@@ -173,14 +205,18 @@ def probe_counts(sorted_build: torch.Tensor, perm_b: torch.Tensor,
     return lo, cnt
 
 
-def _expand_probe_idx(emit: torch.Tensor, out_capacity: int):
+def _expand_probe_idx(emit: torch.Tensor, out_capacity: int,
+                      total: Optional[int] = None):
     """Map each output slot to its source probe row, search-free: mark
     each emitting row's start slot with +1, cumsum over the output space,
-    and translate emit-rank back to row through a compacted index."""
+    and translate emit-rank back to row through a compacted index.
+    ``total`` (the sum of ``emit``, when the caller has read it) saves a
+    host read."""
     n = emit.shape[0]
     device = emit.device
     inclusive = torch.cumsum(emit, 0)
-    total = int(inclusive[-1]) if n else 0
+    if total is None:
+        total = int(inclusive[-1]) if n else 0
     starts = inclusive - emit
     emitting = emit > 0
     # emit-rank -> probe row (rank r is the r-th emitting row)
@@ -202,12 +238,14 @@ def _expand_probe_idx(emit: torch.Tensor, out_capacity: int):
 
 
 def expand_matches(lo: torch.Tensor, counts: torch.Tensor,
-                   perm_b: torch.Tensor, out_capacity: int):
+                   perm_b: torch.Tensor, out_capacity: int,
+                   total: Optional[int] = None):
     """Prefix-sum expansion: (probe_row, build_row) pairs of an inner
     join.  Returns (probe_idx, build_idx, row_valid, unmatched, total),
     each ``[out_capacity]``; ``total`` may exceed out_capacity (the caller
-    sizes the output from ``counts`` first)."""
-    probe_idx, starts, total = _expand_probe_idx(counts, out_capacity)
+    sizes the output from ``counts`` first, and may pass that sum in)."""
+    probe_idx, starts, total = _expand_probe_idx(counts, out_capacity,
+                                                 total)
     device = lo.device
     j = torch.arange(out_capacity, device=device)
     k = j - starts[probe_idx]
@@ -220,11 +258,12 @@ def expand_matches(lo: torch.Tensor, counts: torch.Tensor,
 
 def expand_matches_outer(lo: torch.Tensor, counts: torch.Tensor,
                          live_probe: torch.Tensor, perm_b: torch.Tensor,
-                         out_capacity: int):
+                         out_capacity: int, total: Optional[int] = None):
     """Left-outer expansion: every live probe row emits max(count, 1)
     rows; ``unmatched`` marks the rows whose build side is null."""
     emit = torch.where(live_probe, torch.clamp(counts, min=1), 0)
-    probe_idx, starts, total = _expand_probe_idx(emit, out_capacity)
+    probe_idx, starts, total = _expand_probe_idx(emit, out_capacity,
+                                                 total)
     device = lo.device
     j = torch.arange(out_capacity, device=device)
     k = j - starts[probe_idx]
@@ -234,3 +273,51 @@ def expand_matches_outer(lo: torch.Tensor, counts: torch.Tensor,
                  if perm_b.shape[0] else torch.zeros_like(pos))
     row_valid = j < total
     return probe_idx, build_idx, row_valid, unmatched, total
+
+
+def semi_mask(counts: torch.Tensor, live_probe: torch.Tensor
+              ) -> torch.Tensor:
+    """Semi join: the probe rows with a match (HashSemiJoinOperator
+    analogue)."""
+    return live_probe & (counts > 0)
+
+
+def anti_keep_from_parts(counts: torch.Tensor, live_ids: torch.Tensor,
+                         in_row: torch.Tensor, null_aware: bool,
+                         probe_key_valids, n_build_rows: int,
+                         build_has_null: torch.Tensor) -> torch.Tensor:
+    """Which probe rows survive an anti join.
+
+    NOT EXISTS (``null_aware=False``): keep every unmatched in-range row,
+    null keys included (they never match anything).
+
+    NOT IN (``null_aware=True``) follows SQL three-valued logic
+    (HashSemiJoinOperator.java:47): an empty filtering side keeps every
+    row; otherwise a NULL probe key or any NULL among the filtering keys
+    makes the predicate UNKNOWN -> row excluded; matched rows are FALSE
+    -> excluded; only non-null unmatched rows against a null-free side
+    survive.  ``live_ids`` = the row could match (non-null AND, on the
+    ``single`` tier, not below the build minimum); the probe key is
+    non-null where every ``probe_key_valids`` mask (None = non-nullable)
+    holds.  ``n_build_rows`` is the build's live row count (a host int),
+    ``build_has_null`` the build's device bool scalar.
+    """
+    if not null_aware:
+        return in_row & ((live_ids & (counts == 0)) | ~live_ids)
+    if n_build_rows == 0:
+        return in_row
+    survive = in_row & (counts == 0) & ~build_has_null
+    for v in probe_key_valids:
+        if v is not None:
+            survive = survive & v
+    return survive
+
+
+def any_pair_passes(probe_idx: torch.Tensor, ok: torch.Tensor,
+                    n_probe: int) -> torch.Tensor:
+    """Per probe row: does any of its (probe_idx, ok) pairs pass?  An
+    integer count per row, then ``> 0``: the same result whatever order
+    the scatter adds in (no float atomics)."""
+    hits = torch.zeros(n_probe, dtype=torch.int32, device=ok.device)
+    hits.index_add_(0, probe_idx, ok.to(torch.int32))
+    return hits > 0

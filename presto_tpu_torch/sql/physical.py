@@ -10,11 +10,15 @@ and ``finalize`` becomes a post-aggregation projection (avg = sum/count,
 stddev/variance from the moment components) — the role the reference's
 AccumulatorCompiler + partial/final Step split plays.
 
-This package lowers scans, filter/project, aggregation, inner and left
-hash joins (with dynamic filters), ORDER BY, TopN, LIMIT and the output;
-the runner adds the local exchange.  Every other node raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  There is
-no pipeline-fusion post-pass: the chains run unfused.
+This package lowers scans, VALUES, filter/project, aggregation, inner and
+left hash joins (with dynamic filters), semi and anti joins (IN, EXISTS
+and their negations, with a residual for a correlated EXISTS), the cross
+join and EnforceSingleRow (scalar subqueries), UNION ALL, ORDER BY, TopN,
+LIMIT and the output; the runner adds the local exchange.  The planner
+composes RIGHT and FULL joins and INTERSECT/EXCEPT from these.  Every
+other node raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.  There is no pipeline-fusion post-pass: the chains run
+unfused.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.batch import batch_from_pylist
 from presto_tpu_torch.config import DEFAULT, EngineConfig
 from presto_tpu_torch.connectors.api import ConnectorRegistry
 from presto_tpu_torch.exec.aggregation import (
@@ -33,11 +38,18 @@ from presto_tpu_torch.exec.driver import Pipeline
 from presto_tpu_torch.exec.joinop import (
     HashBuildOperatorFactory, LookupJoinOperatorFactory,
 )
+from presto_tpu_torch.exec.nestedloop import (
+    EnforceSingleRowOperatorFactory, NestedLoopBuildOperatorFactory,
+    NestedLoopJoinOperatorFactory,
+)
 from presto_tpu_torch.exec.operators import (
     FilterProjectOperatorFactory, LimitOperatorFactory,
-    OutputCollectorFactory, TableScanOperatorFactory,
+    OutputCollectorFactory, TableScanOperatorFactory, ValuesOperatorFactory,
 )
 from presto_tpu_torch.exec.sortop import OrderByOperatorFactory, SortSpec
+from presto_tpu_torch.exec.unionop import (
+    UnionBuffer, UnionSinkOperatorFactory, UnionSourceOperatorFactory,
+)
 from presto_tpu_torch.expr import build as B
 from presto_tpu_torch.expr.ir import InputRef, RowExpression
 from presto_tpu_torch.sql.plan import (
@@ -50,12 +62,8 @@ from presto_tpu_torch.sql.plan import (
 # plan nodes this package does not lower yet -> the ROADMAP item porting
 # them
 _NOT_PORTED = (
-    (SemiJoinNode, "A4 (semi and anti joins)"),
-    (ValuesNode, "A5 (values)"),
-    (EnforceSingleRowNode, "A5 (nested-loop operators)"),
     (WindowNode, "A5 (window functions)"),
     (UnnestNode, "A5 (unnest)"),
-    (UnionNode, "A5 (union)"),
     (TableWriterNode, "A5 (writes)"),
     (TableFinishNode, "A5 (writes)"),
 )
@@ -112,6 +120,10 @@ class PhysicalPlanner:
                 conn, node.column_names, self.device,
                 batch_rows=self.config.scan_batch_rows,
                 table=node.table)], splits)
+        if isinstance(node, ValuesNode):
+            batch = batch_from_pylist(node.types, list(node.rows),
+                                      self.device)
+            return ([ValuesOperatorFactory([batch])], [])
         if isinstance(node, (FilterNode, ProjectNode)):
             return self._lower_filter_project(node)
         if isinstance(node, AggregationNode):
@@ -136,6 +148,21 @@ class PhysicalPlanner:
             return chain, splits
         if isinstance(node, JoinNode):
             return self._lower_join(node)
+        if isinstance(node, SemiJoinNode):
+            return self._lower_semijoin(node)
+        if isinstance(node, EnforceSingleRowNode):
+            chain, splits = self._lower(node.source)
+            chain.append(EnforceSingleRowOperatorFactory(node.types,
+                                                         self.device))
+            return chain, splits
+        if isinstance(node, UnionNode):
+            buffer = UnionBuffer(len(node.inputs))
+            for i, inp in enumerate(node.inputs):
+                in_chain, in_splits = self._lower(inp)
+                in_chain.append(UnionSinkOperatorFactory(buffer, i))
+                self._done_pipelines.append(
+                    Pipeline(in_chain, in_splits, name=self._name("union")))
+            return [UnionSourceOperatorFactory(buffer)], []
         for cls, item in _NOT_PORTED:
             if isinstance(node, cls):
                 raise _not_ported(f"{cls.__name__} lowering", item)
@@ -169,9 +196,12 @@ class PhysicalPlanner:
         return chain, splits
 
     def _lower_aggregation(self, node: AggregationNode):
-        if node.step != "single":
-            raise _not_ported(f"{node.step} aggregation step",
-                              "A5 (union) / A6 (distributed tier)")
+        """``single`` and ``partial`` steps decompose the aggregates into
+        primitive channels; a ``partial`` step emits the raw component
+        columns (keys first), which its ``final`` step merges (the
+        optimizer splits an aggregation over a UNION this way)."""
+        if node.step == "final":
+            return self._lower_final_aggregation(node)
         chain, splits = self._lower(node.source)
         input_types = [t for _, t in node.source.columns]
 
@@ -190,11 +220,41 @@ class PhysicalPlanner:
                 list(node.group_channels), agg_channels, input_types))
         else:
             chain.append(GlobalAggregationOperatorFactory(
-                agg_channels, input_types))
-
-        # finalize projection: [keys..., finalized aggs...]
+                agg_channels, input_types, self.device))
+        if node.step == "partial":
+            return chain, splits
         key_types = [input_types[c] for c in node.group_channels]
-        post_in = key_types + [a.out_type for a in agg_channels]
+        self._append_finalize(chain, node, key_types, agg_channels,
+                              finalize_specs)
+        return chain, splits
+
+    def _lower_final_aggregation(self, node: AggregationNode):
+        """FINAL step over a partial's output: [keys..., comp0, comp1, ...].
+        Re-aggregates each component with its merge primitive, then runs
+        the single-step finalize projection."""
+        chain, splits = self._lower(node.source)
+        input_types = [t for _, t in node.source.columns]
+        ngroups = len(node.group_channels)
+        agg_channels, finalize_specs = merge_agg_channels(
+            node.aggregates, ngroups)
+        if ngroups:
+            chain.append(HashAggregationOperatorFactory(
+                list(node.group_channels), agg_channels, input_types))
+        else:
+            chain.append(GlobalAggregationOperatorFactory(
+                agg_channels, input_types, self.device))
+        key_types = [input_types[c] for c in node.group_channels]
+        self._append_finalize(chain, node, key_types, agg_channels,
+                              finalize_specs)
+        return chain, splits
+
+    @staticmethod
+    def _append_finalize(chain: List, node: AggregationNode, key_types,
+                         agg_channels, finalize_specs) -> None:
+        """The finalize projection [keys..., finalized aggs...], where it
+        is not the identity."""
+        ngroups = len(key_types)
+        post_in = list(key_types) + [a.out_type for a in agg_channels]
         exprs: List[RowExpression] = [InputRef(i, t)
                                       for i, t in enumerate(key_types)]
         for agg, comps in finalize_specs:
@@ -206,8 +266,6 @@ class PhysicalPlanner:
                        for i, e in enumerate(exprs))):
             chain.append(FilterProjectOperatorFactory(
                 None, exprs, post_in))
-        return chain, splits
-
 
     def _insert_dynamic_filter(self, chain: List, dyn,
                                key_channels: List[int]) -> None:
@@ -243,10 +301,21 @@ class PhysicalPlanner:
         chain.insert(pos, DynamicFilterOperatorFactory(dyn, keys))
 
     def _lower_join(self, node: JoinNode):
+        if node.kind == "cross":
+            build_chain, build_splits = self._lower(node.right)
+            build = NestedLoopBuildOperatorFactory(
+                [t for _, t in node.right.columns])
+            build_chain.append(build)
+            self._done_pipelines.append(
+                Pipeline(build_chain, build_splits,
+                         name=self._name("xbuild")))
+            chain, splits = self._lower(node.left)
+            chain.append(NestedLoopJoinOperatorFactory(build))
+            return chain, splits
         if node.kind not in ("inner", "left"):
-            item = ("A5 (nested-loop operators)" if node.kind == "cross"
-                    else "A4 (right and full joins)")
-            raise _not_ported(f"{node.kind} join", item)
+            # the planner composes right and full joins from left and
+            # anti joins; a bare one has no operator
+            raise NotImplementedError(f"{node.kind} join")
         build_chain, build_splits = self._lower(node.right)
         chain, splits = self._lower(node.left)
         dyn = None
@@ -272,6 +341,29 @@ class PhysicalPlanner:
             proj = [InputRef(i, t) for i, t in enumerate(types)]
             chain.append(FilterProjectOperatorFactory(
                 node.residual, proj, types))
+        return chain, splits
+
+    def _lower_semijoin(self, node: SemiJoinNode):
+        dyn = None
+        if not node.negated and self.config.dynamic_filtering_enabled:
+            from presto_tpu_torch.exec.dynamicfilter import DynamicFilter
+
+            dyn = DynamicFilter(len(node.filtering_keys))
+        build_chain, build_splits = self._lower(node.filtering)
+        build = HashBuildOperatorFactory(
+            list(node.filtering_keys),
+            [t for _, t in node.filtering.columns], dynamic_filter=dyn)
+        build_chain.append(build)
+        self._done_pipelines.append(
+            Pipeline(build_chain, build_splits, name=self._name("sbuild")))
+        chain, splits = self._lower(node.source)
+        if dyn is not None:
+            self._insert_dynamic_filter(chain, dyn, list(node.source_keys))
+        chain.append(LookupJoinOperatorFactory(
+            build, list(node.source_keys),
+            [t for _, t in node.source.columns],
+            join_type="anti" if node.negated else "semi",
+            residual=node.residual, null_aware=node.null_aware))
         return chain, splits
 
     def _name(self, prefix: str) -> str:
@@ -337,6 +429,31 @@ def decompose_aggregates(aggregates: Sequence[PlanAggregate],
             comp_channels.append(len(agg_channels) - 1)
         finalize_specs.append((agg, comp_channels))
     return pre_exprs, agg_channels, finalize_specs
+
+
+# merge primitive for each partial component primitive (the collect and
+# sketch merges are ROADMAP A5 and raise at the operator)
+_FINAL_PRIM = {"count": "sum", "sum": "sum", "sumsq": "sum", "min": "min",
+               "max": "max", "sumln": "sum", "sumhash": "sum",
+               "collect": "collect_merge", "hll": "hll_merge",
+               "kll": "kll_merge"}
+
+
+def merge_agg_channels(aggregates: Sequence[PlanAggregate], ngroups: int):
+    """FINAL-step channels: re-aggregate each partial component with its
+    merge primitive (HashAggregationOperator.Step:61 role)."""
+    agg_channels: List[AggChannel] = []
+    finalize_specs: List[Tuple[PlanAggregate, List[int]]] = []
+    comp_ch = ngroups
+    for agg in aggregates:
+        comp_channels: List[int] = []
+        for prim, ctype in agg.spec.components:
+            agg_channels.append(AggChannel(_FINAL_PRIM[prim], comp_ch,
+                                           ctype))
+            comp_channels.append(len(agg_channels) - 1)
+            comp_ch += 1
+        finalize_specs.append((agg, comp_channels))
+    return agg_channels, finalize_specs
 
 
 def _finalize(agg: PlanAggregate, comps: List[RowExpression]

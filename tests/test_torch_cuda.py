@@ -299,3 +299,190 @@ def test_hash_overflow_seam_on_cuda_matches_cpu(card):
     for g, w in zip(got, want):
         assert g[0] == w[0] and g[2] == w[2]
         assert g[1] == pytest.approx(w[1], rel=1e-9, abs=0.0)
+
+
+def _rows_close(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(y, float):
+                assert x == pytest.approx(y, rel=1e-9, abs=0.0)
+            else:
+                assert x == y
+
+
+@pytest.mark.parametrize("q", [4, 18, 21, 22])
+def test_semi_anti_queries_on_cuda_match_cpu(card, q):
+    """TPC-H queries with semi and anti joins (Q21's with a residual) on
+    cuda: the CPU's rows, the same bits on a repeat, and B2 serving the
+    small semi/anti builds (PagesHash on the card)."""
+    sql = C.SQL_QUERIES[f"q{q}"]
+    before = B2.LOOKUP_LAUNCHES.count
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card)
+    got = runner.execute(sql).rows
+    assert B2.LOOKUP_LAUNCHES.count > before
+    assert runner.execute(sql).rows == got
+    want = LocalQueryRunner.tpch(scale=0.01, device="cpu").execute(sql).rows
+    assert len(want) > 0
+    _rows_close(got, want)
+
+
+def _join_rows(device, max_build_rows, join_type, residual, null_aware):
+    """A build of 400 rows and a probe of 1,000 in batches of 300, with
+    duplicate and NULL keys, through HashBuild + LookupJoin on ``device``:
+    the surviving probe rows."""
+    import numpy as np
+
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.batch import Batch, Column
+    from presto_tpu_torch.config import EngineConfig
+    from presto_tpu_torch.exec.context import (
+        OperatorContext, QueryContext, TaskContext,
+    )
+    from presto_tpu_torch.exec.joinop import (
+        HashBuildOperatorFactory, LookupJoinOperatorFactory,
+    )
+    from presto_tpu_torch.expr import build as B
+
+    rng = np.random.default_rng(3)
+    k1 = rng.integers(-50, 150, 400)
+    kvalid = rng.random(400) > 0.1
+    if null_aware:
+        kvalid[:] = True                 # else NOT IN keeps no row
+    payload = rng.uniform(-1, 1, 400)
+    p1 = rng.integers(-80, 200, 1000)
+    pvalid = rng.random(1000) > 0.1
+    cfg = EngineConfig(device_join_probe_max_build_rows=max_build_rows)
+
+    def batch(cols, lo, hi):
+        return Batch(tuple(
+            Column(t, torch.from_numpy(v[lo:hi]).to(device),
+                   None if m is None else torch.from_numpy(m[lo:hi]).to(
+                       device)) for t, v, m in cols), hi - lo)
+
+    def ctx(name):
+        return OperatorContext(TaskContext(QueryContext(cfg)), name)
+
+    bf = HashBuildOperatorFactory([0], [T.BIGINT, T.DOUBLE])
+    bop = bf.create(ctx("build"))
+    bop.add_input(batch([(T.BIGINT, k1, kvalid), (T.DOUBLE, payload, None)],
+                        0, 400))
+    bop.finish()
+    mode = bf.lookup.get().mode
+    res = None
+    if residual:
+        res = B.comparison(">", B.ref(3, T.DOUBLE), B.call(
+            "subtract", B.call("divide", B.cast(B.ref(0, T.BIGINT),
+                                                T.DOUBLE),
+                               B.const(1000.0, T.DOUBLE)),
+            B.const(0.5, T.DOUBLE)))
+    jf = LookupJoinOperatorFactory(bf, [1], [T.BIGINT, T.BIGINT], join_type,
+                                   residual=res, null_aware=null_aware)
+    jop = jf.create(ctx("probe"))
+    probe = [(T.BIGINT, np.arange(1000), None), (T.BIGINT, p1, pvalid)]
+    rows = []
+    for lo in range(0, 1000, 300):
+        jop.add_input(batch(probe, lo, min(lo + 300, 1000)))
+        while (out := jop.get_output()) is not None:
+            rows.extend(out.to_pylist())
+    jop.close()
+    return mode, rows
+
+
+@pytest.mark.parametrize("join_type,residual,null_aware", [
+    ("semi", False, False), ("anti", False, False), ("anti", False, True),
+    ("semi", True, False), ("anti", True, False)])
+@pytest.mark.parametrize("max_build_rows,tier", [(0, "single"),
+                                                 (1 << 17, "hash")])
+def test_semi_anti_tiers_on_cuda_match_cpu(card, max_build_rows, tier,
+                                           join_type, residual, null_aware,
+                                           monkeypatch):
+    from presto_tpu_torch.exec import joinop
+
+    # many chunks of residual pairs per probe batch
+    monkeypatch.setattr(joinop, "RESIDUAL_CHUNK_PAIRS", 64)
+    mode, got = _join_rows(card, max_build_rows, join_type, residual,
+                           null_aware)
+    again = _join_rows(card, max_build_rows, join_type, residual,
+                       null_aware)[1]
+    _mode, want = _join_rows("cpu", max_build_rows, join_type, residual,
+                             null_aware)
+    assert mode == tier
+    assert got == again == want and len(want) > 0
+
+
+@pytest.mark.parametrize("sql", [
+    C.SQL_QUERIES["q11"], C.SQL_QUERIES["q15"],
+    "select n_name from nation where n_nationkey in "
+    "(select max(r_regionkey) from region) order by n_name",
+    "select n_nationkey from nation where n_nationkey < 3 "
+    "union all select count(*) from region",
+    "select c, r_name from (select count(*) as c from nation) x, region "
+    "order by r_name",
+    "select r_name, (select count(*) from nation) from region "
+    "order by r_name",
+    "select n_name, r_name from nation n full join region r "
+    "on n.n_regionkey = r.r_regionkey order by n_name, r_name",
+    "select 1, 'a'"], ids=["q11", "q15", "in_global_aggregate",
+                           "union_global_aggregate", "cross_global_left",
+                           "scalar_in_select", "full_join", "select_1"])
+def test_host_rows_meet_device_rows_on_cuda(card, sql):
+    """A global aggregate's row comes out on the query's card, so where
+    it meets other rows (a join build or probe, a cross join, a union, a
+    scalar subquery) no operator stages it, and the CPU's rows come out."""
+    got = LocalQueryRunner.tpch(scale=0.01, device=card).execute(sql).rows
+    want = LocalQueryRunner.tpch(scale=0.01, device="cpu").execute(sql).rows
+    assert len(want) > 0
+    _rows_close(got, want)
+
+
+@pytest.mark.parametrize("join_type,null_aware", [
+    ("semi", False), ("anti", False), ("anti", True)])
+@pytest.mark.parametrize("max_build_rows", [0, 1 << 17])  # single, hash
+def test_semi_anti_probe_batch_reads_the_card_once(card, max_build_rows,
+                                                   join_type, null_aware):
+    """Without a residual a semi/anti probe batch blocks on the card once:
+    the selected count (``torch.nonzero``).  CUDA's sync debug mode warns
+    at every synchronizing call."""
+    import warnings
+
+    import numpy as np
+
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.batch import Batch, Column
+    from presto_tpu_torch.config import EngineConfig
+    from presto_tpu_torch.exec.context import (
+        OperatorContext, QueryContext, TaskContext,
+    )
+    from presto_tpu_torch.exec.joinop import (
+        HashBuildOperatorFactory, LookupJoinOperatorFactory,
+    )
+
+    cfg = EngineConfig(device_join_probe_max_build_rows=max_build_rows)
+
+    def ctx(name):
+        return OperatorContext(TaskContext(QueryContext(cfg)), name)
+
+    rng = np.random.default_rng(1)
+    keys = torch.from_numpy(rng.integers(0, 5000, 4000)).to(card)
+    bf = HashBuildOperatorFactory([0], [T.BIGINT])
+    bop = bf.create(ctx("build"))
+    bop.add_input(Batch((Column(T.BIGINT, keys),), 4000))
+    bop.finish()
+    jop = LookupJoinOperatorFactory(bf, [0], [T.BIGINT], join_type,
+                                    null_aware=null_aware).create(ctx("probe"))
+    probe = torch.from_numpy(rng.integers(0, 10000, 30000)).to(card)
+    valid = torch.from_numpy(rng.random(30000) > 0.05).to(card)
+    batch = Batch((Column(T.BIGINT, probe, valid),), 30000)
+    jop.add_input(batch)                  # first batch: caches, histogram
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            jop.add_input(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert bf.lookup.get().mode == ("hash" if max_build_rows else "single")

@@ -5,9 +5,13 @@ with its default config; the port on the CPU, once with its default
 config and once with the hash tiers forced: ``force_pages_hash`` and
 ``hash_groupby_min_rows=0``, the choices the port makes on cuda at
 scale).  Rows must agree: keys and counts exactly, doubles to 1e-9
-relative, and row order where the SQL has ORDER BY.  The EXPLAIN texts
-must be equal, and the two TPC-H generators must give bit-equal lineitem
-columns.
+relative, and row order where the SQL has ORDER BY.  Besides TPC-H
+queries the cases hold NOT IN's three-valued logic (a NULL in the
+subquery, an empty subquery, NULL probe keys), NOT EXISTS, a correlated
+EXISTS with a residual, RIGHT and FULL joins, UNION ALL across two
+dictionaries, UNION, INTERSECT, EXCEPT, SELECT without FROM and scalar
+subqueries of zero and two rows.  The EXPLAIN texts must be equal, and
+the two TPC-H generators must give bit-equal lineitem columns.
 """
 
 import dataclasses
@@ -79,6 +83,64 @@ select count(*), sum(a.q) from
 where a.k = b.k2
 """
 
+# NOT IN / NOT EXISTS three-valued logic (nullif makes the NULLs)
+NOT_IN_NULL_BUILD = """
+select n_name from nation
+where n_nationkey not in (select nullif(r_regionkey, 2) from region)
+"""
+
+NOT_IN_EMPTY = """
+select n_name, nullif(n_nationkey, 3) from nation
+where nullif(n_nationkey, 3) not in
+      (select r_regionkey from region where r_regionkey > 100)
+order by n_name
+"""
+
+NOT_IN_NULL_PROBE = """
+select n_name from nation
+where nullif(n_regionkey, 1) not in
+      (select r_regionkey from region where r_regionkey < 2)
+order by n_name
+"""
+
+NOT_EXISTS_NULL_PROBE = """
+select n_name from (select n_name, nullif(n_regionkey, 1) as rk
+                    from nation) x
+where not exists (select * from region
+                  where r_regionkey = x.rk and r_regionkey < 3)
+order by n_name
+"""
+
+EXISTS_RESIDUAL = """
+select o_orderkey from orders
+where o_orderkey < 2000
+  and exists (select * from lineitem where l_orderkey = o_orderkey
+              and l_quantity * 4000 > o_totalprice)
+order by o_orderkey
+"""
+
+RIGHT_JOIN_FILTER = """
+select r.r_name, n.n_name from nation n right join region r
+  on n.n_regionkey = r.r_regionkey and r.r_name = 'ASIA'
+order by r.r_name, n.n_name
+"""
+
+FULL_JOIN = """
+select n.n_name, r.r_name
+from (select * from nation where n_regionkey < 3) n
+full join (select * from region where r_regionkey > 0) r
+  on n.n_regionkey = r.r_regionkey
+order by n.n_name, r.r_name
+"""
+
+# one GROUP BY over a union whose name channel has two dictionaries
+UNION_DICT_GROUPS = """
+select name, k, count(*) from
+  (select n_name as name, n_regionkey as k from nation
+   union all select r_name, r_regionkey from region) t
+group by name, k
+"""
+
 CASES = {
     "q1": (QUERIES[1], True),
     "q3": (QUERIES[3], True),
@@ -95,12 +157,36 @@ CASES = {
     "q13_left_join": (QUERIES[13], True),
     "sub_f32_group": (SUB_F32_GROUP, True),
     "sub_f32_join": (SUB_F32_JOIN, True),
+    "not_in_null_build": (NOT_IN_NULL_BUILD, False),
+    "not_in_empty": (NOT_IN_EMPTY, True),
+    "not_in_null_probe": (NOT_IN_NULL_PROBE, True),
+    "not_exists_null_probe": (NOT_EXISTS_NULL_PROBE, True),
+    "exists_residual": (EXISTS_RESIDUAL, True),
+    "right_join_filter": (RIGHT_JOIN_FILTER, True),
+    "full_join": (FULL_JOIN, True),
+    "full_join_count": ("select count(*) from nation n full join region r "
+                        "on n.n_regionkey = r.r_regionkey", True),
+    "union_all_dicts": ("select n_name from nation union all "
+                        "select r_name from region", False),
+    "union_dict_groups": (UNION_DICT_GROUPS, False),
+    "union": ("select n_regionkey from nation union "
+              "select r_regionkey from region order by 1", True),
+    "intersect": ("select n_regionkey from nation intersect select "
+                  "r_regionkey from region where r_regionkey < 3 "
+                  "order by 1", True),
+    "except": ("select n_regionkey from nation except select r_regionkey "
+               "from region where r_regionkey < 3 order by 1", True),
+    "select_1": ("select 1", True),
+    "scalar_zero_rows": ("select count(*), min(n_name) from nation where "
+                         "n_regionkey = (select r_regionkey from region "
+                         "where r_name = 'NONE')", True),
 }
 
 # the hash tiers on both sides: GroupByHash from the first row (the JAX
 # package runs it on the CPU too), PagesHash for every join of the port
 HASH_CASES = ("q3", "q5", "q10", "partkey", "double_join", "left_join",
-              "sub_f32_group")
+              "sub_f32_group", "not_in_null_probe", "not_exists_null_probe",
+              "exists_residual")
 
 
 @pytest.fixture(scope="module")
@@ -246,7 +332,7 @@ def test_limit_releases_blocked_feeders():
                 if ".feed" in t.name and t.is_alive()]
 
 
-@pytest.mark.parametrize("q", [1, 6, 3])
+@pytest.mark.parametrize("q", [1, 6, 3, 4, 11, 16, 21, 22])
 def test_explain_text_equal(runners, q):
     jax_runner, torch_runner = runners
     assert torch_runner.explain(QUERIES[q]) == jax_runner.explain(QUERIES[q])
@@ -299,15 +385,59 @@ def test_batch_from_arrays_carries_jax_batches():
 
 
 @pytest.mark.parametrize("sql", [
-    "select count(*) from orders where o_orderkey in "
-    "(select l_orderkey from lineitem)",
-    "select count(*) from nation, region",
+    "select x from nation cross join unnest(array[n_nationkey]) as t(x)",
+    "set session task_concurrency = 2",
     "select n_name, row_number() over (order by n_name) from nation",
     "show tables",
+    # a spatial predicate over a cross join (the spatial join is A5)
+    "select count(*) from nation, region where "
+    "st_contains(st_point(n_nationkey, 1), st_point(r_regionkey, 1))",
 ])
 def test_unported_shapes_raise(runners, sql):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         runners[1].execute(sql)
+
+
+def test_three_valued_row_counts(runners):
+    """The parity cases above are not vacuous: NOT IN against a NULL in
+    the subquery keeps no row, against an empty subquery every row (a NULL
+    key too), and a NULL probe key drops its row from NOT IN but not from
+    NOT EXISTS."""
+    run = runners[1].execute
+    assert run(NOT_IN_NULL_BUILD).rows == []
+    rows = run(NOT_IN_EMPTY).rows
+    assert len(rows) == 25 and sum(r[1] is None for r in rows) == 1
+    # regions 0 and 1 hold 5 nations each: NOT IN keeps regions 2-4,
+    # NOT EXISTS (< 3) also keeps region 1's NULL keys
+    assert len(run(NOT_IN_NULL_PROBE).rows) == 15
+    assert len(run(NOT_EXISTS_NULL_PROBE).rows) == 15
+
+
+def test_union_dictionaries_stay_apart_on_the_hash_tier(runners,
+                                                        hash_runners):
+    """Names from two dictionaries reach one GROUP BY on the hash tier
+    (keyed on codes): the union re-codes them into one dictionary, so
+    ALGERIA (code 0 of nation) and AFRICA (code 0 of region) stay two
+    groups.  Against the JAX package's default tiers."""
+    torch_runner = hash_runners[1]
+    got = torch_runner.execute(UNION_DICT_GROUPS).rows
+    tiers = {s.kernel_tier for s in torch_runner._last_task.operator_stats
+             if s.operator.endswith("HashAggregationOperator")}
+    assert tiers == {"hash"}
+    assert len(got) == 30
+    _assert_rows_equal(got, runners[0].execute(UNION_DICT_GROUPS).rows,
+                       False)
+
+
+def test_scalar_subquery_of_two_rows_raises_as_jax(runners):
+    sql = ("select count(*) from nation where n_regionkey = "
+           "(select r_regionkey from region where r_regionkey < 2)")
+    with pytest.raises(RuntimeError) as jax_err:
+        runners[0].execute(sql)
+    with pytest.raises(RuntimeError) as torch_err:
+        runners[1].execute(sql)
+    assert str(torch_err.value) == str(jax_err.value) == (
+        "scalar subquery returned more than one row")
 
 
 def test_no_device_and_no_cuda_raises():

@@ -1,6 +1,6 @@
 """Where a query's time goes in presto_tpu_torch on a CUDA card.
 
-    python3 tools/torch_profile.py [--scale 1.0] [--query q1|q6|q3|partkey ...]
+    python3 tools/torch_profile.py [--scale 1.0] [--query q1|q3|q4|...]
 
 For each query: one cold run, then one warm run under torch.profiler
 (CPU + CUDA activities).  Prints one JSON line per query with
@@ -30,7 +30,11 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import PARTKEY, Q1, Q3, Q6, card_line  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    PARTKEY, Q1, Q3, Q6, SQL_QUERIES, card_line,
+)
+
+QUERIES = {"q1": Q1, "q6": Q6, "q3": Q3, "partkey": PARTKEY, **SQL_QUERIES}
 
 
 def _busy_seconds(events) -> float:
@@ -52,8 +56,7 @@ def _busy_seconds(events) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
-    ap.add_argument("--query", action="append",
-                    choices=["q1", "q6", "q3", "partkey"])
+    ap.add_argument("--query", action="append", choices=sorted(QUERIES))
     args = ap.parse_args()
 
     import torch
@@ -76,7 +79,7 @@ def main() -> int:
     runner = LocalQueryRunner.tpch(scale=args.scale)
     done = Completed()
     runner.event_bus.register(done)
-    sql = {"q1": Q1, "q6": Q6, "q3": Q3, "partkey": PARTKEY}
+    sql = QUERIES
     for label in args.query or ["q1", "q6"]:
         runner.execute(sql[label])                      # cold
         torch.cuda.synchronize()
