@@ -1,6 +1,6 @@
 """Smoke run of presto_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--scale 1.0] [--seed 0]
+    python3 chip_smoke.py [--scale 1.0] [--seed 0] [--ds-scale 1.0]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -36,8 +36,9 @@ Phases (any failure exits non-zero; nothing is caught):
      ``wrapper_ms``, the wrapper's call as the tiers make it (CUDA events
      around it, host included), with ``library_device_ms`` beside
      ``library_ms`` where the library call can be captured;
-   - the float group sums of the direct (above B1's 32 groups), sort and
-     hash tiers: bit-identical on a repeat;
+   - the float group sums of the direct (above B1's 32 groups), sort,
+     hash and clustered (streaming) tiers, and a window's partition sums:
+     bit-identical on a repeat;
 3. SQL on the card, through ``presto_tpu_torch.localrunner.
    LocalQueryRunner`` on ``cuda`` at ``--scale``, rows held against a numpy
    oracle over the same generator columns (1e-9 relative for doubles,
@@ -68,9 +69,18 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels line's ``launches_by_path``.  One more run of each query,
    which no wall reads, keeps a copy of the inputs of each kernel's
    largest launch and of B2's insert into the fullest table (each insert
-   with its table as it was before);
-5. each kernel at the inputs phase 4 kept for each path, held against its
-   plain version and timed as in phase 2 (``segment_sums``,
+   with its table as it was before).  Q18's IN subquery must stream its
+   GROUP BY (``q18_streaming`` line);
+6. TPC-DS at ``--ds-scale`` (``DS_QUERIES``: BASELINE.md's config 5, Q72
+   and Q95, then the window queries Q98, Q51, Q47, Q44 and Q67, the
+   suite's text with ``DS_VARIANTS``) as phase 4 runs its queries, each
+   against an oracle that uses none of the port's operators (Q72 in
+   numpy, the rest in sqlite3 filled from the generator's columns); the
+   ``sql`` lines add the window operator's, TopNRowNumber's and the
+   streaming aggregation's host reads; its kept inputs go to phase 5
+   under ``ds_<query>`` paths.  It runs before phase 5's checks;
+5. each kernel at the inputs phases 4 and 6 kept for each path, held
+   against its plain version and timed as in phase 2 (``segment_sums``,
    ``probe_insert`` and ``probe_lookup`` lines with a ``path``, and under
    ``by_path`` in the kernels line); a path that launched a kernel and
    kept no inputs for it fails.
@@ -87,6 +97,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
+import os
 import subprocess
 import sys
 import time
@@ -831,14 +842,16 @@ def b2_checks(seed: int):
 
 
 def c2_checks(seed: int):
-    """The float group sums of the direct (above 32 groups), sort and hash
-    tiers: the same bits on a repeat, and within 1e-9 relative of a
-    float64 ``index_add_``."""
+    """The float group sums of the direct (above 32 groups), sort, hash
+    and clustered (streaming) tiers, and a window's partition sums (the
+    segmented scan): the same bits on a repeat, and within 1e-9 relative
+    of a float64 ``index_add_``."""
     import torch
 
     from presto_tpu_torch import types as T
     from presto_tpu_torch.ops import groupby as G
     from presto_tpu_torch.ops import hashtable as H
+    from presto_tpu_torch.ops import window as W
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n = 1 << 21
@@ -871,9 +884,30 @@ def c2_checks(seed: int):
         order = torch.argsort(key_outs[0][0])
         return agg_outs[0][0][order], key_outs[0][0][order]
 
+    order = torch.argsort(keys, stable=True)
+    skeys, svals = keys[order], vals[order]
+    starts = torch.ones(n, dtype=torch.bool, device="cuda")
+    starts[1:] = skeys[1:] != skeys[:-1]
+    first = torch.nonzero(starts).squeeze(1)
+
+    def clustered():
+        first_pos, ng, res = G.clustered_aggregate(
+            [(skeys, None, T.BIGINT)], [("sum", svals, None)], n, n)
+        g = int(ng)
+        return res[0][0][:g], skeys[first_pos[:g]]
+
+    def window():
+        seg = W.segment_ids(~starts)
+        lo, hi = W.frame_ends(seg, seg, "range", "unbounded_preceding",
+                              "unbounded_following")
+        total, _cnt = W.framed_sum_count(seg, svals, None, lo, hi)
+        return total[first], skeys[first]
+
     out = {}
     for name, fn, ids in (("direct", direct, codes.long()),
-                          ("sort", sort, keys), ("hash", hashed, keys)):
+                          ("sort", sort, keys), ("hash", hashed, keys),
+                          ("clustered", clustered, keys),
+                          ("window", window, keys)):
         a, ka = fn()
         b, kb = fn()
         torch.cuda.synchronize()
@@ -1198,36 +1232,6 @@ def oracle_q22(scale: float):
     return [(str(c), int(n), float(v)) for c, n, v in zip(codes, cnt, sums)]
 
 
-def rows_match_ties(got, want, label: str, order_cols) -> None:
-    """``rows_match`` where rows whose ORDER BY columns tie may come in
-    any order: each run of tied rows in ``want`` is compared as a set
-    (both sides sorted by their exact, non-float columns)."""
-    if len(got) != len(want):
-        raise AssertionError(f"{label}: {len(got)} rows, want {len(want)}")
-
-    def same(a, b):
-        for c in order_cols:
-            x, y = a[c], b[c]
-            if isinstance(y, float):
-                if abs(x - y) > 1e-9 * max(abs(y), 1e-300):
-                    return False
-            elif x != y:
-                return False
-        return True
-
-    def exact(r):
-        return tuple(str(x) for x in r if not isinstance(x, float))
-
-    i = 0
-    while i < len(want):
-        j = i + 1
-        while j < len(want) and same(want[j], want[i]):
-            j += 1
-        rows_match(sorted(got[i:j], key=exact), sorted(want[i:j], key=exact),
-                   f"{label} rows {i}-{j}")
-        i = j
-
-
 def rows_match(got, want, label: str) -> None:
     if len(got) != len(want):
         raise AssertionError(f"{label}: {len(got)} rows, want {len(want)}")
@@ -1242,13 +1246,86 @@ def rows_match(got, want, label: str) -> None:
                                      f"{y!r}")
 
 
+def _by(*cols):
+    """ORDER BY columns (index, descending) -> the key of one row."""
+    return lambda r: tuple(r[c] for c, _ in cols), [d for _, d in cols]
+
+
+def _tie(a, b) -> bool:
+    for x, y in zip(a, b):
+        if isinstance(y, float) and isinstance(x, float):
+            if abs(x - y) > 1e-9 * max(abs(y), 1e-300):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _exact(r):
+    return tuple(str(x) for x in r if not isinstance(x, float))
+
+
+def _row_close(g, w) -> bool:
+    try:
+        rows_match([g], [w], "")
+    except AssertionError:
+        return False
+    return True
+
+
+def rows_match_limit(got, want, key, label: str, limit=None) -> None:
+    """``want``: every oracle row in ORDER BY order.  Runs of rows whose
+    ORDER BY values tie compare as sets; where the LIMIT cuts a run, the
+    port's rows of it must be among the oracle's."""
+    n = len(want) if limit is None else min(limit, len(want))
+    if len(got) != n:
+        raise AssertionError(f"{label}: {len(got)} rows, want {n}")
+    i = 0
+    while i < n:
+        j = i + 1
+        while j < len(want) and _tie(key(want[j]), key(want[i])):
+            j += 1
+        if j <= n:
+            rows_match(sorted(got[i:j], key=_exact),
+                       sorted(want[i:j], key=_exact),
+                       f"{label} rows {i}-{j}")
+        else:
+            pool = list(want[i:j])
+            for g in got[i:n]:
+                hit = next((p for p in pool if _row_close(g, p)), None)
+                if hit is None:
+                    raise AssertionError(f"{label}: {g!r} is not among the "
+                                         f"{len(pool)} tied oracle rows")
+                pool.remove(hit)
+        i = j
+
+
 class DeviceSpy:
     """Records the device of every tensor the named ops functions get,
-    so a run can show its join and aggregation inputs were on the card."""
+    so a run can show its join and aggregation inputs were on the card;
+    and counts the calls of the functions that read the device to the
+    host (``count``: the window operator's partition starts,
+    TopNRowNumber's kept rows, the streaming aggregation's one read a
+    batch)."""
 
     def __init__(self):
         self.seen = []
+        self.reads = {}
         self._undo = []
+
+    def count(self, module, name: str, label: str) -> None:
+        real = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            self.reads[label] = self.reads.get(label, 0) + 1
+            return real(*args, **kwargs)
+
+        setattr(module, name, counted)
+        self._undo.append((module, name, real))
+
+    def take_reads(self) -> dict:
+        out, self.reads = self.reads, {}
+        return out
 
     def wrap(self, module, name: str, label: str) -> None:
         real = getattr(module, name)
@@ -1458,84 +1535,639 @@ SEMI_MUST_LAUNCH = {"q4": ("b1",), "q18": ("insert", "lookup"),
 
 
 def scanned_rows(runner, scale: float, sql: str) -> int:
-    """The rows of every table scan in the query's plan."""
+    """The rows of every tpch or tpcds table scan in the query's plan,
+    both catalogs generated at ``scale``."""
     import re
 
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
     from presto_tpu_torch.connectors.tpch import TpchConnector
 
-    conn = TpchConnector(scale=scale)
-    return sum(conn.row_count(t) for t in
-               re.findall(r"TableScan tpch\.(\w+)", runner.explain(sql)))
+    conns = {"tpch": TpchConnector(scale=scale),
+             "tpcds": TpcdsConnector(scale=scale)}
+    return sum(int(conns[c].table_statistics(conns[c].get_table(t))
+                   .row_count)
+               for c, t in re.findall(r"TableScan (tpch|tpcds)\.(\w+)",
+                                      runner.explain(sql)))
+
+
+def run_paths(runner, queries: dict, card: str, scale: float, modules,
+              compare, spy: "DeviceSpy", spy_inputs: dict,
+              must_launch: dict, scanned) -> tuple:
+    """One phase of SQL paths on the card: for each query of ``queries``
+    (label -> SQL), a cold run with the launch counts set to 0 just
+    before it and read just after, then two warm runs; every run's rows
+    held against the oracle by ``compare(label, rows)``, the same bits on
+    every run, the inputs ``spy`` watches on cuda (``spy_inputs``: the
+    labels each query must show), the kernels ``must_launch`` names
+    launched.  One more run of each, which no wall reads, keeps the
+    inputs of each kernel's largest launch and of B2's insert into the
+    fullest table (``PathInputs``).  Each query prints a ``sql`` line:
+    its walls, the rows of every table scan of its plan (``scanned``),
+    its launches, join and aggregation tiers, and the host reads
+    ``spy`` counted in its cold run.  Returns the launches and the kept
+    inputs by path."""
+    S, B2, H, J, G = modules
+    launches, kept = {}, {}
+    keep = PathInputs()
+    for label, sql in queries.items():
+        S.LAUNCHES.reset()
+        B2.INSERT_LAUNCHES.reset()
+        B2.LOOKUP_LAUNCHES.reset()
+        spy.take_reads()
+        res, wall = timed(runner, sql)
+        launches[label] = {"b1": S.LAUNCHES.count,
+                           "insert": B2.INSERT_LAUNCHES.count,
+                           "lookup": B2.LOOKUP_LAUNCHES.count}
+        reads = spy.take_reads()
+        stats = runner._last_task.operator_stats
+        join_tiers = [s.kernel_tier for s in stats
+                      if "LookupJoin" in s.operator]
+        aggs = [f"{s.operator.rsplit('.', 1)[-1]}:{s.kernel_tier}"
+                for s in stats if "Aggregation" in s.operator]
+        spy.check(spy_inputs[label])
+        walls = [wall]
+        results = [res.rows]
+        for _ in range(2):
+            res, wall = timed(runner, sql)
+            walls.append(wall)
+            results.append(res.rows)
+        spy.check(spy_inputs[label])
+        keep.wrap(G, "direct_segment_sums", "b1")
+        keep.wrap(B2, "insert_claims", "insert")
+        keep.wrap(B2, "insert_claims", "insert_loaded", insert_load)
+        keep.wrap(B2, "lookup_ranges", "lookup")
+        results.append(runner.execute(sql).rows)
+        keep.restore()
+        spy.seen = []
+        kept[label] = keep.take()
+        for rows in results:
+            compare(label, rows)
+        if any(r != results[0] for r in results[1:]):
+            raise AssertionError(f"{label}: runs differ in their bits")
+        for kind in must_launch.get(label, ()):
+            if launches[label][kind] < 1:
+                raise AssertionError(f"{label} ran without a {kind} launch: "
+                                     f"{launches[label]}, joins "
+                                     f"{join_tiers}")
+        n_rows = scanned(sql)
+        print("sql " + json.dumps({
+            "query": label, "scale": scale, "rows": n_rows,
+            "result_rows": len(results[0]), "cold_s": walls[0],
+            "warm_s": min(walls[1:]),
+            "warm_rows_per_s": n_rows / min(walls[1:]),
+            "join_tiers": join_tiers, "agg_tiers": aggs,
+            "launches": launches[label], "host_reads": reads,
+            "card": card}), flush=True)
+    return launches, kept
 
 
 def semi_phase(runner, scale: float, card: str, want: dict,
-               modules) -> dict:
+               modules) -> tuple:
     """Phase 4: the queries of ``SQL_QUERIES`` on the card against their
-    numpy oracles (ties in the ORDER BY columns compared as sets), one
-    cold and two warm runs each, the same bits on every run, the semi and
-    anti probes' inputs on cuda, and each query's own kernel launches and
-    join tiers.  Each ``sql`` line's ``rows`` are the rows of every table
-    scan of the plan.  One more run of each, which no wall reads, keeps
-    the inputs of each kernel's largest launch and of B2's insert into
-    the fullest table (``PathInputs``).  Returns
-    the launches by path and those inputs by path."""
+    numpy oracles (ties in the ORDER BY columns compared as sets), the
+    semi and anti probes' inputs on cuda (``run_paths``).  Q18's
+    ``group by l_orderkey`` must take the streaming aggregation, as the
+    JAX package plans it.  Returns the launches and kept inputs by path."""
     S, B2, H, J, G = modules
     spy = DeviceSpy()
     for name in ("semi_mask", "anti_keep_from_parts", "any_pair_passes"):
         spy.wrap(J, name, "semi")
     spy.wrap(H, "pages_hash_probe", "join")
     spy.wrap(J, "probe_counts", "join")
-    launches, tiers, walls, results, kept = {}, {}, {}, {}, {}
-    keep = PathInputs()
-    for label, sql in SQL_QUERIES.items():
-        S.LAUNCHES.reset()
-        B2.INSERT_LAUNCHES.reset()
-        B2.LOOKUP_LAUNCHES.reset()
-        res, wall = timed(runner, sql)
-        launches[label] = {"b1": S.LAUNCHES.count,
-                           "insert": B2.INSERT_LAUNCHES.count,
-                           "lookup": B2.LOOKUP_LAUNCHES.count}
-        tiers[label] = [s.kernel_tier
-                        for s in runner._last_task.operator_stats
-                        if "LookupJoin" in s.operator]
-        # every plan probes a hash join on the card; the semi/anti masks
-        # run in all but Q11 and Q15 (no semi join, a scalar subquery)
-        inputs = ["join"] if label in ("q11", "q15") else ["join", "semi"]
-        spy.check(inputs)
-        walls[label] = [wall]
-        results[label] = [res.rows]
-        for _ in range(2):
-            res, wall = timed(runner, sql)
-            walls[label].append(wall)
-            results[label].append(res.rows)
-        spy.check(inputs)
-        keep.wrap(G, "direct_segment_sums", "b1")
-        keep.wrap(B2, "insert_claims", "insert")
-        keep.wrap(B2, "insert_claims", "insert_loaded", insert_load)
-        keep.wrap(B2, "lookup_ranges", "lookup")
-        results[label].append(runner.execute(sql).rows)
-        keep.restore()
-        kept[label] = keep.take()
-        for rows in results[label]:
-            rows_match_ties(rows, want[label], label,
-                            SQL_ORDER_COLUMNS[label])
-        if any(r != results[label][0] for r in results[label][1:]):
-            raise AssertionError(f"{label}: runs differ in their bits")
-        for kind in SEMI_MUST_LAUNCH.get(label, ()):
-            if launches[label][kind] < 1:
-                raise AssertionError(f"{label} ran without a {kind} launch: "
-                                     f"{launches[label]}, joins "
-                                     f"{tiers[label]}")
-        w = walls[label]
-        n_rows = scanned_rows(runner, scale, sql)
-        print("sql " + json.dumps({
-            "query": label, "scale": scale, "rows": n_rows,
-            "result_rows": len(results[label][0]), "cold_s": w[0],
-            "warm_s": min(w[1:]), "warm_rows_per_s": n_rows / min(w[1:]),
-            "join_tiers": tiers[label], "launches": launches[label],
-            "card": card}), flush=True)
+    spy.wrap(G, "clustered_aggregate", "streaming")
+    # every plan probes a hash join on the card; the semi/anti masks run
+    # in all but Q11 and Q15 (no semi join, a scalar subquery); Q18
+    # streams its IN subquery's GROUP BY
+    inputs = {label: (["join"] if label in ("q11", "q15") else
+                      ["join", "semi"]) + (["streaming"] if label == "q18"
+                                           else [])
+              for label in SQL_QUERIES}
+
+    def compare(label, rows):
+        key = _by(*[(c, False) for c in SQL_ORDER_COLUMNS[label]])[0]
+        rows_match_limit(rows, want[label], key, label)
+
+    out = run_paths(runner, SQL_QUERIES, card, scale, modules, compare, spy,
+                    inputs, SEMI_MUST_LAUNCH,
+                    lambda sql: scanned_rows(runner, scale, sql))
     spy.restore()
-    return launches, kept
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 6: TPC-DS on the card against sqlite3 and numpy oracles
+# --------------------------------------------------------------------------
+
+# BASELINE.md's config 5 (Q72, Q95), then the window queries, in the order
+# phase 6 runs them; the SQL is the suite's (tests/tpcds_suite)
+DS_QUERIES = ("q72", "q95", "q98", "q51", "q47", "q44", "q67")
+DS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "tpcds_suite")
+
+
+# Three predicates of the suite's text select no row of this generator at
+# any scale: its d_month_seq counts months from 1990 (0..155) where the
+# TPC-DS spec counts from 1900, so Q51's and Q67's months 1200..1211 become
+# 108..119 (1999); and ss_addr_sk is never NULL, so Q44's threshold (the
+# average over store 4's sales without an address) is taken over its sales
+# with one.  Phase 6 runs the suite's text with these replacements, its
+# oracles the same
+DS_VARIANTS = {
+    "q51": [("BETWEEN 1200 AND (1200 + 11)", "BETWEEN 108 AND (108 + 11)")],
+    "q67": [("BETWEEN 1200 AND (1200 + 11)", "BETWEEN 108 AND (108 + 11)")],
+    "q44": [('("ss_addr_sk" IS NULL)', '("ss_addr_sk" IS NOT NULL)')],
+}
+
+
+def ds_sql(label: str) -> str:
+    with open(os.path.join(DS_DIR, f"{label}.sql")) as f:
+        sql = f.read()
+    for old, new in DS_VARIANTS.get(label, ()):
+        if old not in sql:
+            raise AssertionError(f"{label}: no {old!r} in the suite's text")
+        sql = sql.replace(old, new)
+    return sql
+
+
+def ds_columns(scale: float, table: str, names):
+    """The tpcds generator's columns of ``table`` on the host: {name:
+    (values, valid or None, type)}, dictionary codes decoded to str."""
+    import numpy as np
+
+    from presto_tpu_torch.batch import concat_batches
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+
+    conn = TpcdsConnector(scale=scale)
+    handle = conn.get_table(table)
+    batches = [b for s in conn.get_splits(handle, 1)
+               for b in conn.page_source(s, names, 1 << 25)]
+    b = concat_batches(batches) if len(batches) > 1 else batches[0]
+    out = {}
+    for name, c in zip(names, b.columns):
+        v = np.asarray(c.values)[:b.num_rows]
+        if c.dictionary is not None:
+            v = np.asarray(c.dictionary.values, dtype=object)[v]
+        valid = None if c.valid is None else np.asarray(c.valid)[:b.num_rows]
+        out[name] = (v, valid, c.type)
+    return out
+
+
+# the columns the sqlite oracles read, and the indexes that keep sqlite's
+# nested-loop joins off full scans
+DS_SQLITE_TABLES = {
+    "date_dim": ["d_date_sk", "d_date", "d_year", "d_moy", "d_qoy",
+                 "d_month_seq"],
+    "item": ["i_item_sk", "i_item_id", "i_item_desc", "i_category",
+             "i_class", "i_current_price", "i_brand", "i_product_name"],
+    "store": ["s_store_sk", "s_store_name", "s_company_name", "s_store_id"],
+    "customer_address": ["ca_address_sk", "ca_state"],
+    "web_site": ["web_site_sk", "web_company_name"],
+    "web_returns": ["wr_order_number"],
+    "web_sales": ["ws_order_number", "ws_warehouse_sk", "ws_ship_date_sk",
+                  "ws_ship_addr_sk", "ws_web_site_sk", "ws_ext_ship_cost",
+                  "ws_net_profit", "ws_item_sk", "ws_sold_date_sk",
+                  "ws_sales_price"],
+    "store_sales": ["ss_item_sk", "ss_sold_date_sk", "ss_store_sk",
+                    "ss_sales_price", "ss_ext_sales_price", "ss_net_profit",
+                    "ss_addr_sk", "ss_quantity"],
+}
+DS_SQLITE_INDEXES = [
+    ("date_dim", "d_date_sk"), ("date_dim", "d_date"),
+    ("date_dim", "d_month_seq"), ("item", "i_item_sk"),
+    ("store", "s_store_sk"), ("customer_address", "ca_address_sk"),
+    ("web_site", "web_site_sk"), ("web_returns", "wr_order_number"),
+    ("web_sales", "ws_order_number"), ("web_sales", "ws_sold_date_sk"),
+    ("web_sales", "ws_ship_date_sk"), ("store_sales", "ss_sold_date_sk"),
+    ("store_sales", "ss_store_sk"),
+]
+
+
+def ds_sqlite(scale: float):
+    """An in-memory sqlite3 database filled from the generator's columns
+    (DATE as ISO text, DOUBLE as REAL, NULL where a value is invalid)."""
+    import sqlite3
+
+    import numpy as np
+
+    db = sqlite3.connect(":memory:")
+    for table, names in DS_SQLITE_TABLES.items():
+        cols = ds_columns(scale, table, names)
+        lists, decl = [], []
+        for n in names:
+            v, valid, typ = cols[n]
+            if typ.name == "date":
+                v = (np.datetime64("1970-01-01")
+                     + v.astype("timedelta64[D]")).astype(str)
+            lst = v.tolist()
+            if valid is not None:
+                lst = [x if ok else None for x, ok in zip(lst,
+                                                          valid.tolist())]
+            lists.append(lst)
+            kind = ("TEXT" if typ.name in ("varchar", "char", "date")
+                    else "REAL" if typ.name in ("double", "real", "decimal")
+                    else "INTEGER")
+            decl.append(f"{n} {kind}")
+        db.execute(f"create table {table} ({', '.join(decl)})")
+        db.executemany(f"insert into {table} values "
+                       f"({', '.join('?' * len(names))})", zip(*lists))
+    for table, col in DS_SQLITE_INDEXES:
+        db.execute(f"create index ix_{table}_{col} on {table}({col})")
+    db.commit()
+    return db
+
+
+_Q67_KEYS = ["i_category", "i_class", "i_brand", "i_product_name",
+             "d_year", "d_qoy", "d_moy", "s_store_id"]
+
+# each query in sqlite's dialect, with the suite's semantics: DATE
+# arithmetic on ISO text, DECIMAL literals as REAL, Q51's FULL JOIN as a
+# LEFT JOIN and an anti join, Q67's ROLLUP as its nine grouping levels,
+# Q95's self-join on order numbers as the orders with two warehouses.
+# No LIMIT: the comparison takes the ORDER BY in Python (NULLs last) and
+# compares the rows a LIMIT cuts from a run of ties as a subset
+DS_ORACLE_SQL = {
+    "q95": """
+WITH wh2 AS (
+  SELECT ws_order_number FROM web_sales GROUP BY ws_order_number
+  HAVING count(DISTINCT ws_warehouse_sk) > 1)
+SELECT count(DISTINCT ws1.ws_order_number), sum(ws_ext_ship_cost),
+       sum(ws_net_profit)
+FROM web_sales ws1, date_dim, customer_address, web_site
+WHERE d_date BETWEEN '1999-02-01' AND '1999-04-02'
+  AND ws1.ws_ship_date_sk = d_date_sk
+  AND ws1.ws_ship_addr_sk = ca_address_sk AND ca_state = 'IL'
+  AND ws1.ws_web_site_sk = web_site_sk AND web_company_name = 'pri'
+  AND ws1.ws_order_number IN (SELECT ws_order_number FROM wh2)
+  AND ws1.ws_order_number IN (SELECT wr_order_number FROM web_returns
+                              WHERE wr_order_number IN wh2)""",
+    "q98": """
+SELECT i_item_id, i_item_desc, i_category, i_class, i_current_price,
+       sum(ss_ext_sales_price),
+       sum(ss_ext_sales_price) * 100
+         / sum(sum(ss_ext_sales_price)) OVER (PARTITION BY i_class)
+FROM store_sales, item, date_dim
+WHERE ss_item_sk = i_item_sk AND i_category IN ('Sports', 'Books', 'Home')
+  AND ss_sold_date_sk = d_date_sk
+  AND d_date BETWEEN '1999-02-22' AND '1999-03-24'
+GROUP BY i_item_id, i_item_desc, i_category, i_class, i_current_price""",
+    "q51": ["""
+CREATE TEMP TABLE web_v1 AS
+  SELECT ws_item_sk item_sk, d_date,
+         sum(sum(ws_sales_price)) OVER (PARTITION BY ws_item_sk
+           ORDER BY d_date ROWS BETWEEN UNBOUNDED PRECEDING
+           AND CURRENT ROW) cume_sales
+  FROM web_sales, date_dim
+  WHERE ws_sold_date_sk = d_date_sk AND d_month_seq BETWEEN 108 AND 119
+    AND ws_item_sk IS NOT NULL
+  GROUP BY ws_item_sk, d_date""", """
+CREATE TEMP TABLE store_v1 AS
+  SELECT ss_item_sk item_sk, d_date,
+         sum(sum(ss_sales_price)) OVER (PARTITION BY ss_item_sk
+           ORDER BY d_date ROWS BETWEEN UNBOUNDED PRECEDING
+           AND CURRENT ROW) cume_sales
+  FROM store_sales, date_dim
+  WHERE ss_sold_date_sk = d_date_sk AND d_month_seq BETWEEN 108 AND 119
+    AND ss_item_sk IS NOT NULL
+  GROUP BY ss_item_sk, d_date""",
+        "CREATE INDEX ix_web_v1 ON web_v1(item_sk, d_date)",
+        "CREATE INDEX ix_store_v1 ON store_v1(item_sk, d_date)", """
+WITH j AS (
+  SELECT web.item_sk w_item, web.d_date w_date, web.cume_sales web_sales,
+         store.item_sk s_item, store.d_date s_date,
+         store.cume_sales store_sales
+  FROM web_v1 web LEFT JOIN store_v1 store
+    ON web.item_sk = store.item_sk AND web.d_date = store.d_date
+  UNION ALL
+  SELECT NULL, NULL, NULL, store.item_sk, store.d_date, store.cume_sales
+  FROM store_v1 store LEFT JOIN web_v1 web
+    ON web.item_sk = store.item_sk AND web.d_date = store.d_date
+  WHERE web.item_sk IS NULL)
+SELECT * FROM (
+  SELECT item_sk, d_date, web_sales, store_sales,
+         max(web_sales) OVER (PARTITION BY item_sk ORDER BY d_date
+           ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW) web_cumulative,
+         max(store_sales) OVER (PARTITION BY item_sk ORDER BY d_date
+           ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW)
+           store_cumulative
+  FROM (SELECT CASE WHEN w_item IS NOT NULL THEN w_item ELSE s_item END
+                 item_sk,
+               CASE WHEN w_date IS NOT NULL THEN w_date ELSE s_date END
+                 d_date,
+               web_sales, store_sales FROM j) x) y
+WHERE web_cumulative - store_cumulative
+      > -1e-9 * abs(store_cumulative)"""],
+    "q47": ["""
+CREATE TEMP TABLE v1 AS
+  SELECT i_category, i_brand, s_store_name, s_company_name, d_year, d_moy,
+         sum(ss_sales_price) sum_sales,
+         avg(sum(ss_sales_price)) OVER (PARTITION BY i_category, i_brand,
+           s_store_name, s_company_name, d_year) avg_monthly_sales,
+         rank() OVER (PARTITION BY i_category, i_brand, s_store_name,
+           s_company_name ORDER BY d_year, d_moy) rn
+  FROM item, store_sales, date_dim, store
+  WHERE ss_item_sk = i_item_sk AND ss_sold_date_sk = d_date_sk
+    AND ss_store_sk = s_store_sk
+    AND (d_year = 1999 OR (d_year = 1998 AND d_moy = 12)
+         OR (d_year = 2000 AND d_moy = 1))
+  GROUP BY i_category, i_brand, s_store_name, s_company_name, d_year,
+           d_moy""",
+        "CREATE INDEX ix_v1 ON v1(i_category, i_brand, s_store_name, "
+        "s_company_name, rn)", """
+SELECT v1.i_category, v1.i_brand, v1.s_store_name, v1.s_company_name,
+       v1.d_year, v1.d_moy, v1.avg_monthly_sales, v1.sum_sales,
+       v1_lag.sum_sales psum, v1_lead.sum_sales nsum
+FROM v1, v1 v1_lag, v1 v1_lead
+WHERE v1.i_category = v1_lag.i_category
+  AND v1.i_category = v1_lead.i_category
+  AND v1.i_brand = v1_lag.i_brand AND v1.i_brand = v1_lead.i_brand
+  AND v1.s_store_name = v1_lag.s_store_name
+  AND v1.s_store_name = v1_lead.s_store_name
+  AND v1.s_company_name = v1_lag.s_company_name
+  AND v1.s_company_name = v1_lead.s_company_name
+  AND v1.rn = v1_lag.rn + 1 AND v1.rn = v1_lead.rn - 1
+  AND v1.d_year = 1999 AND v1.avg_monthly_sales > 0
+  AND abs(v1.sum_sales - v1.avg_monthly_sales) / v1.avg_monthly_sales
+      > 0.1"""],
+    "q44": """
+WITH ranked AS (
+  SELECT ss_item_sk item_sk, avg(ss_net_profit) rank_col
+  FROM store_sales WHERE ss_store_sk = 4 GROUP BY ss_item_sk
+  HAVING avg(ss_net_profit) > 0.9 * (
+    SELECT avg(ss_net_profit) FROM store_sales
+    WHERE ss_store_sk = 4 AND ss_addr_sk IS NOT NULL
+    GROUP BY ss_store_sk)),
+asceding AS (
+  SELECT * FROM (SELECT item_sk, rank() OVER (ORDER BY rank_col ASC) rnk
+                 FROM ranked) WHERE rnk < 11),
+descending AS (
+  SELECT * FROM (SELECT item_sk, rank() OVER (ORDER BY rank_col DESC) rnk
+                 FROM ranked) WHERE rnk < 11)
+SELECT asceding.rnk, i1.i_product_name, i2.i_product_name
+FROM asceding, descending, item i1, item i2
+WHERE asceding.rnk = descending.rnk AND i1.i_item_sk = asceding.item_sk
+  AND i2.i_item_sk = descending.item_sk""",
+    "q67": """
+WITH base AS (
+  SELECT i_category, i_class, i_brand, i_product_name, d_year, d_qoy,
+         d_moy, s_store_id, coalesce(ss_sales_price * ss_quantity, 0) v
+  FROM store_sales, date_dim, store, item
+  WHERE ss_sold_date_sk = d_date_sk AND ss_item_sk = i_item_sk
+    AND ss_store_sk = s_store_sk AND d_month_seq BETWEEN 108 AND 119),
+dw1 AS ({levels})
+SELECT * FROM (
+  SELECT *, rank() OVER (PARTITION BY i_category ORDER BY sumsales DESC) rk
+  FROM dw1) WHERE rk <= 100""".replace("{levels}", "\n  UNION ALL\n  ".join(
+        "SELECT " + ", ".join(_Q67_KEYS[:k] + [f"NULL {c}" for c in
+                                                _Q67_KEYS[k:]])
+        + ", sum(v) sumsales FROM base"
+        + (" GROUP BY " + ", ".join(_Q67_KEYS[:k]) if k else "")
+        for k in range(8, -1, -1))),
+}
+
+
+# each query's ORDER BY over its output row, as (key of a row, descending
+# flags), and its LIMIT
+DS_ORDER = {
+    "q72": (_by((5, True), (0, False), (1, False), (2, False)), 100),
+    "q95": (_by((0, False)), 100),
+    "q98": (_by((2, False), (3, False), (0, False), (1, False),
+                (6, False)), None),
+    "q51": (_by((0, False), (1, False)), 100),
+    "q47": ((lambda r: (r[7] - r[6], r[2]), [False, False]), 100),
+    "q44": (_by((0, False)), 100),
+    "q67": (_by(*[(c, False) for c in range(10)]), 100),
+}
+
+
+def presto_sorted(rows, key, desc):
+    """Rows in ORDER BY order with NULLs last, ascending or descending."""
+    import functools
+
+    def cmp(a, b):
+        for x, y, d in zip(key(a), key(b), desc):
+            if x == y:
+                continue
+            if x is None:
+                return 1
+            if y is None:
+                return -1
+            return (-1 if x < y else 1) * (-1 if d else 1)
+        return 0
+
+    return sorted(rows, key=functools.cmp_to_key(cmp))
+
+
+# rows an oracle returns that the port may leave out: Q51 keeps a row
+# where web_cumulative > store_cumulative, two running float sums that
+# are often the same cents added in another order, so a row whose two
+# sums agree to 1e-9 may fall either side of the test (the oracle's SQL
+# returns those rows too)
+DS_OPTIONAL = {"q51": lambda r: abs(r[4] - r[5]) <= 1e-9 * abs(r[5])}
+
+
+def rows_match_optional(got, want, optional, label: str, limit) -> None:
+    """``want``: every oracle row in ORDER BY order (no ties), those that
+    ``optional`` marks possibly absent from the port's rows.  The port's
+    rows must be the oracle's in order, leaving out optional ones only,
+    and cut at the LIMIT."""
+    j = 0
+    rest = []
+    for i, w in enumerate(want):
+        if j == len(got):
+            rest = want[i:]
+            break
+        if _row_close(got[j], w):
+            j += 1
+        elif not optional(w):
+            raise AssertionError(f"{label}: row {j} is {got[j]!r}, want "
+                                 f"{w!r}")
+    if j < len(got):
+        raise AssertionError(f"{label}: row {j} {got[j]!r} is not the "
+                             "oracle's")
+    if len(got) < limit and not all(optional(w) for w in rest):
+        raise AssertionError(f"{label}: {len(got)} rows, the oracle has "
+                             "more")
+
+
+def oracle_q72(scale: float):
+    """TPC-DS Q72 in numpy: catalog sales of 1999 shipped more than five
+    days after the sale, to 'D' bill-to demographics with buy potential
+    '>10000', each met with the inventory of its item in its sale week
+    holding fewer units than it sold; LEFT joins to promotion and to the
+    catalog returns of the same item and order (each matching return
+    repeats the row).  Counted by (item desc, warehouse, week)."""
+    import numpy as np
+
+    cs = ds_columns(scale, "catalog_sales", [
+        "cs_sold_date_sk", "cs_ship_date_sk", "cs_bill_cdemo_sk",
+        "cs_bill_hdemo_sk", "cs_item_sk", "cs_promo_sk", "cs_order_number",
+        "cs_quantity"])
+    dd = ds_columns(scale, "date_dim", ["d_date_sk", "d_date", "d_year",
+                                        "d_week_seq"])
+    hd = ds_columns(scale, "household_demographics",
+                    ["hd_demo_sk", "hd_buy_potential"])
+    cd = ds_columns(scale, "customer_demographics",
+                    ["cd_demo_sk", "cd_marital_status"])
+    it = ds_columns(scale, "item", ["i_item_sk", "i_item_desc"])
+    wh = ds_columns(scale, "warehouse", ["w_warehouse_sk",
+                                         "w_warehouse_name"])
+    pr = ds_columns(scale, "promotion", ["p_promo_sk"])
+    cr = ds_columns(scale, "catalog_returns", ["cr_item_sk",
+                                               "cr_order_number"])
+    inv = ds_columns(scale, "inventory", [
+        "inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+        "inv_quantity_on_hand"])
+
+    def v(t, n):
+        return t[n][0]
+
+    def ok(t, n):
+        return (np.ones(len(t[n][0]), bool) if t[n][1] is None
+                else t[n][1])
+
+    def find(keys, valid, table, col):
+        """Row of ``table`` whose ``col`` equals each key (-1: none)."""
+        tk = v(table, col)
+        order = np.argsort(tk, kind="stable")
+        pos = np.clip(np.searchsorted(tk[order], keys), 0, len(tk) - 1)
+        hit = valid & (tk[order][pos] == keys) & ok(table, col)[order][pos]
+        return np.where(hit, order[pos], -1)
+
+    live = np.ones(len(v(cs, "cs_item_sk")), bool)
+    for n in ("cs_sold_date_sk", "cs_ship_date_sk", "cs_bill_cdemo_sk",
+              "cs_bill_hdemo_sk", "cs_item_sk", "cs_quantity"):
+        live &= ok(cs, n)
+    d1 = find(v(cs, "cs_sold_date_sk"), live, dd, "d_date_sk")
+    d3 = find(v(cs, "cs_ship_date_sk"), live, dd, "d_date_sk")
+    h = find(v(cs, "cs_bill_hdemo_sk"), live, hd, "hd_demo_sk")
+    c = find(v(cs, "cs_bill_cdemo_sk"), live, cd, "cd_demo_sk")
+    i = find(v(cs, "cs_item_sk"), live, it, "i_item_sk")
+    live &= (d1 >= 0) & (d3 >= 0) & (h >= 0) & (c >= 0) & (i >= 0)
+    live &= v(dd, "d_year")[d1] == 1999
+    live &= v(dd, "d_date")[d3] > v(dd, "d_date")[d1] + 5
+    live &= v(hd, "hd_buy_potential")[h] == ">10000"
+    live &= v(cd, "cd_marital_status")[c] == "D"
+    rows = np.nonzero(live)[0]
+    week = v(dd, "d_week_seq")[d1[rows]]
+
+    # inventory by (item, week of its date), joined to warehouse and d2
+    inv_ok = ok(inv, "inv_date_sk") & ok(inv, "inv_item_sk") \
+        & ok(inv, "inv_warehouse_sk")
+    d2 = find(v(inv, "inv_date_sk"), inv_ok, dd, "d_date_sk")
+    w = find(v(inv, "inv_warehouse_sk"), inv_ok, wh, "w_warehouse_sk")
+    inv_ok &= (d2 >= 0) & (w >= 0)
+    inv_rows = np.nonzero(inv_ok)[0]
+    ikey = (v(inv, "inv_item_sk")[inv_rows] << 20) \
+        + v(dd, "d_week_seq")[d2[inv_rows]]
+    order = np.argsort(ikey, kind="stable")
+    ikey, inv_rows = ikey[order], inv_rows[order]
+    ckey = (v(cs, "cs_item_sk")[rows] << 20) + week
+    lo = np.searchsorted(ikey, ckey, "left")
+    cnt = np.searchsorted(ikey, ckey, "right") - lo
+    pair_cs = np.repeat(np.arange(len(rows)), cnt)
+    pair_inv = inv_rows[np.repeat(lo - np.cumsum(cnt) + cnt, cnt)
+                        + np.arange(cnt.sum())]
+    qty_ok = ok(inv, "inv_quantity_on_hand")[pair_inv] & (
+        v(inv, "inv_quantity_on_hand")[pair_inv]
+        < v(cs, "cs_quantity")[rows[pair_cs]])
+    pair_cs, pair_inv = pair_cs[qty_ok], pair_inv[qty_ok]
+    r = rows[pair_cs]
+
+    promo = find(v(cs, "cs_promo_sk")[r], ok(cs, "cs_promo_sk")[r], pr,
+                 "p_promo_sk") >= 0
+    # catalog returns of the same (item, order): a row per match, or one
+    rkey = v(cr, "cr_item_sk") * (1 << 32) + v(cr, "cr_order_number")
+    rkey = np.sort(rkey[ok(cr, "cr_item_sk") & ok(cr, "cr_order_number")])
+    qkey = v(cs, "cs_item_sk")[r] * (1 << 32) + v(cs, "cs_order_number")[r]
+    mult = np.searchsorted(rkey, qkey, "right") - np.searchsorted(
+        rkey, qkey, "left")
+    if not np.all(ok(cs, "cs_order_number")[r]):
+        mult = np.where(ok(cs, "cs_order_number")[r], mult, 0)
+    mult = np.maximum(mult, 1)
+
+    groups = {}
+    desc = v(it, "i_item_desc")[i[r]]
+    wname = v(wh, "w_warehouse_name")[w[pair_inv]]
+    for k, (d, wn, wk, p, m) in enumerate(zip(
+            desc.tolist(), wname.tolist(), week[pair_cs].tolist(),
+            promo.tolist(), mult.tolist())):
+        g = groups.setdefault((d, wn, wk), [0, 0, 0])
+        g[0 if not p else 1] += m
+        g[2] += m
+    return [(d, wn, int(wk), n0, n1, n) for (d, wn, wk), (n0, n1, n)
+            in groups.items()]
+
+
+def ds_oracles(scale: float) -> dict:
+    """Every phase-6 query's rows from its oracle, in ORDER BY order (all
+    rows, before any LIMIT)."""
+    import datetime as _dt
+
+    want = {"q72": oracle_q72(scale)}
+    db = ds_sqlite(scale)
+    for label, sql in DS_ORACLE_SQL.items():
+        # a list: statements that stage tables, then the query
+        for stmt in sql[:-1] if isinstance(sql, list) else ():
+            db.execute(stmt)
+        rows = db.execute(sql[-1] if isinstance(sql, list)
+                          else sql).fetchall()
+        if label == "q51":
+            rows = [(r[0], _dt.date.fromisoformat(r[1])) + tuple(r[2:])
+                    for r in rows]
+        want[label] = rows
+    db.close()
+    for label, rows in want.items():
+        (key, desc), _limit = DS_ORDER[label]
+        want[label] = presto_sorted(rows, key, desc)
+    return want
+
+
+def ds_phase(runner, scale: float, card: str, want: dict,
+             modules) -> tuple:
+    """Phase 6: the queries of ``DS_QUERIES`` (TPC-DS at ``scale``) on the
+    card against their oracles (``ds_oracles``; ties in the ORDER BY
+    compared as sets, and the rows a LIMIT cuts from a run of ties as a
+    subset), through ``run_paths``; the joins' and the windows' inputs on
+    cuda, and the window operator's and TopNRowNumber's host reads
+    counted.  A query whose oracle has rows must return rows.  Returns
+    the launches and kept inputs by path (``ds_<query>``)."""
+    S, B2, H, J, G = modules
+    from presto_tpu_torch.exec import streamagg as SA
+    from presto_tpu_torch.ops import window as W
+
+    spy = DeviceSpy()
+    spy.wrap(H, "pages_hash_probe", "join")
+    spy.wrap(J, "probe_counts", "join")
+    spy.wrap(W, "segment_ids", "window")
+    spy.count(W, "nonzero_host", "window")
+    spy.count(W, "nonzero_index", "topn")
+    spy.count(SA, "_read_host", "streaming")
+    queries = {f"ds_{q}": ds_sql(q) for q in DS_QUERIES}
+    inputs = {f"ds_{q}": ["join"] + (["window"] if q not in ("q72", "q95")
+                                     else [])
+              for q in DS_QUERIES}
+
+    def compare(label, rows):
+        q = label[3:]
+        (key, _desc), limit = DS_ORDER[q]
+        if want[q] and not rows:
+            raise AssertionError(f"{label}: no row, the oracle has "
+                                 f"{len(want[q])}")
+        if q in DS_OPTIONAL:
+            rows_match_optional(rows, want[q], DS_OPTIONAL[q], label, limit)
+        else:
+            rows_match_limit(rows, want[q], key, label, limit)
+
+    out = run_paths(runner, queries, card, scale, modules, compare, spy,
+                    inputs, {},
+                    lambda sql: scanned_rows(runner, scale, sql))
+    spy.restore()
+    for q in DS_QUERIES:
+        print("ds_oracle " + json.dumps({
+            "query": f"ds_{q}", "oracle_rows": len(want[q]),
+            "empty": not want[q]}), flush=True)
+    return out
+
 
 
 def main() -> int:
@@ -1544,6 +2176,8 @@ def main() -> int:
                     help="TPC-H scale factor of the SQL phase")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel phase's random inputs")
+    ap.add_argument("--ds-scale", type=float, default=1.0,
+                    help="TPC-DS scale factor of phase 6")
     args = ap.parse_args()
 
     import torch
@@ -1709,6 +2343,33 @@ def main() -> int:
     # to 0 just before it and read just after, then warm twice
     semi_launches, semi_inputs = semi_phase(runner, args.scale, card, want,
                                             (S, B2, H, J, G))
+    # Q18's IN subquery streams its GROUP BY now (clustered_aggregate on
+    # cuda, checked above); its B2 inserts are the PagesHash build's only,
+    # beside the 107 of the hash tier's rehash ladder before (PERF.md)
+    print("q18_streaming " + json.dumps({
+        "insert": semi_launches["q18"]["insert"], "insert_hash_tier": 107,
+        "lookup": semi_launches["q18"]["lookup"]}), flush=True)
+
+    # -- phase 6: TPC-DS (BASELINE.md's config 5 and the window queries)
+    # at --ds-scale, each path cold with the counts set to 0 just before
+    # it and read just after, then warm twice; its kept inputs join phase
+    # 5's checks below
+    t0 = time.perf_counter()
+    ds_want = ds_oracles(args.ds_scale)
+    print(f"ds_oracles: {time.perf_counter() - t0:.2f} s at "
+          f"SF{args.ds_scale}", flush=True)
+    ds_runner = LocalQueryRunner.tpch(scale=args.ds_scale)
+    ds_launches, ds_inputs = ds_phase(ds_runner, args.ds_scale, card,
+                                      ds_want, (S, B2, H, J, G))
+    del ds_want
+    semi_launches.update(ds_launches)
+    semi_inputs.update(ds_inputs)
+    # the dimension builds take PagesHash (B2); no GROUP BY of these
+    # queries has a key domain small enough for B1
+    for kind in ("insert", "lookup"):
+        if not any(c[kind] for c in ds_launches.values()):
+            raise AssertionError(f"phase 6 launched no {kind}: "
+                                 f"{ds_launches}")
 
     # -- phase 5: each kernel at the inputs phase 4 kept on each path,
     # against its plain version, with its times

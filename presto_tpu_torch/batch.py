@@ -19,7 +19,7 @@ Arrays may be padded beyond ``num_rows`` (``pad_rows``, the shape-bucket
 policy ``next_bucket``); logical rows always occupy ``[0, num_rows)``.
 
 Nested types (ARRAY/MAP/ROW) are not part of this package yet
-(ROADMAP A5); a nested column raises ``NotImplementedError``.
+(ROADMAP A6); a nested column raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -140,7 +140,7 @@ class Column:
             raise ValueError(f"{self.type} column requires a dictionary")
         if self.type.is_nested:
             raise NotImplementedError(
-                f"{self.type.display()} columns: ROADMAP A5 ports nested "
+                f"{self.type.display()} columns: ROADMAP A6 ports nested "
                 "types")
 
     @property
@@ -323,7 +323,7 @@ def batch_from_arrays(columns, device) -> Batch:
 
 def column_from_pylist(typ: T.Type, values: Sequence[Any]) -> Column:
     """A host Column from Python values (None == NULL): the BlockBuilder
-    role for the flat types (nested ones are ROADMAP A5)."""
+    role for the flat types (nested ones are ROADMAP A6)."""
     n = len(values)
     valid = None
     if any(v is None for v in values):
@@ -404,7 +404,7 @@ def concat_batches(batches: Sequence[Batch]) -> Batch:
 def empty_column(typ: T.Type) -> Column:
     if typ.is_nested:
         raise NotImplementedError(
-            f"{typ.display()} columns: ROADMAP A5 ports nested types")
+            f"{typ.display()} columns: ROADMAP A6 ports nested types")
     dictionary = Dictionary() if typ.is_dictionary else None
     return Column(typ, np.zeros(0, typ.np_dtype), None, dictionary)
 

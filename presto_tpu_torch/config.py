@@ -67,6 +67,10 @@ class EngineConfig:
     # tier (the counterpart of the JAX package's PRESTO_TPU_RADIX=1
     # switch).  It changes no result.
     force_pages_hash: bool = False
+    # --- streaming aggregation (exec/streamagg.py) ----------------------
+    # A GROUP BY whose keys are a prefix of the scan's declared sort order
+    # runs as StreamingAggregationOperator (no sort, no hash table).
+    streaming_aggregation_enabled: bool = True
 
 
 DEFAULT = EngineConfig()

@@ -6,7 +6,7 @@ queryCreated / queryCompleted events to pluggable listeners (audit,
 metrics shipping, query logs).  Listeners receive typed dataclasses;
 exceptions in listeners are swallowed (an observer must never fail a
 query), matching the reference's isolation stance.  The distributed
-tier's fault-tolerance events come with that tier (ROADMAP A6).
+tier's fault-tolerance events come with that tier (ROADMAP A13).
 """
 
 from __future__ import annotations

@@ -19,9 +19,9 @@ them (``presto_tpu/exec/aggregation.py:253-505``):
 - **sort**: ``ops.groupby.grouped_aggregate`` over the materialized
   input, for everything else.
 
-Spilling, streaming aggregation and the host-side collect/sketch
-aggregates are ROADMAP A4 and A5: a plan that needs them raises
-``NotImplementedError``.
+Streaming aggregation over key-clustered scans is exec/streamagg.py.
+Spilling and the host-side collect/sketch aggregates are ROADMAP A8 and
+A5: a plan that needs them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ pass.  Every build records whether a live row has a NULL key (NOT IN's
 three-valued logic).
 
 The ``canonical`` tier (a union sort of both sides' keys), the spilled
-(grace) build and grouped execution are ROADMAP A4 and raise
+(grace) build and grouped execution are ROADMAP A7, A8 and A9 and raise
 ``NotImplementedError``.
 """
 
@@ -264,7 +264,7 @@ class HashBuildOperator(Operator):
             return
         raise NotImplementedError(
             "join keys that need the canonical tier (a union sort of both "
-            "sides) are not in presto_tpu_torch yet: ROADMAP A4 (canonical "
+            "sides) are not in presto_tpu_torch yet: ROADMAP A7 (canonical "
             "join tier)")
 
     def _set_pages_hash(self, data: Batch, key_pairs, chans,

@@ -5,8 +5,9 @@ permutation once on the device, and gathers.  TopN (ORDER BY + LIMIT) is
 the same sort with a truncated output, as in the JAX package.  Varchar keys order by the
 lexicographic rank of their dictionary codes (``Dictionary.sort_ranks``),
 computed on the host over the dictionary: strings never sort on the
-device.  The spilled external sort (sorted runs + merge) and the radix
-sort are ROADMAP A4.
+device.  The spilled external sort (sorted runs + merge) is ROADMAP A8;
+on CUDA ``torch.argsort`` already is a radix sort, so the JAX package's
+TPU radix route has no counterpart.
 """
 
 from __future__ import annotations

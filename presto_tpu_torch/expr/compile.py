@@ -109,7 +109,7 @@ class ExprCompiler:
         if expr.value is None:
             if t.is_nested:
                 raise NotImplementedError(
-                    f"{t.display()} values: ROADMAP A5 ports nested types")
+                    f"{t.display()} values: ROADMAP A6 ports nested types")
             dt = t.np_dtype
 
             def run(cols, n, xp):
@@ -164,7 +164,7 @@ class ExprCompiler:
             return CompiledExpr(T.BOOLEAN, run)
         if fn.null_mode == "hash64":
             raise NotImplementedError(
-                "hash64: ROADMAP A4 ports the row hashing (ops/hashing.py)")
+                "hash64: ROADMAP A13 ports the row hashing (ops/hashing.py)")
         if fn.kind == "string":
             return self._string_call(expr, fn, cargs)
         impl = fn.impl
@@ -196,10 +196,10 @@ class ExprCompiler:
     def _nested_call(self, expr: Call, fn: F.Scalar) -> CompiledExpr:
         """Host-side functions over whole columns (value -> string casts,
         date_format).  Array/map/row functions and lambdas are ROADMAP
-        A5."""
+        A6."""
         if any(isinstance(a, LambdaExpr) for a in expr.args):
             raise NotImplementedError(
-                f"lambda in {expr.name}: ROADMAP A5 ports nested types")
+                f"lambda in {expr.name}: ROADMAP A6 ports nested types")
         cvals = [self.compile(a) for a in expr.args]
         impl = fn.impl
         rt = fn.result_type

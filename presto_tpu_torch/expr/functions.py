@@ -1128,7 +1128,7 @@ def _resolve_nested(name: str, args: Tuple[T.Type, ...]) -> Optional[Scalar]:
     """Array/map/row function resolution (ArrayFunctions / MapFunctions /
     lambda functions): not in this package yet."""
     raise NotImplementedError(
-        f"array/map/row function {name}: ROADMAP A5 ports nested types")
+        f"array/map/row function {name}: ROADMAP A6 ports nested types")
 
 
 _MYSQL_TO_STRFTIME = {
@@ -1252,7 +1252,7 @@ def resolve_format_datetime(src: T.Type, fmt: str) -> Scalar:
 
 def resolve_array_percentile(arr: T.ArrayType, p: float) -> Scalar:
     raise NotImplementedError(
-        "array_percentile: ROADMAP A5 ports nested types")
+        "array_percentile: ROADMAP A6 ports nested types")
 
 
 def resolve_kll_percentile(result_type: T.Type, p: float) -> Scalar:
@@ -1264,23 +1264,23 @@ def resolve_kll_percentile(result_type: T.Type, p: float) -> Scalar:
 
 def resolve_array_constructor(rt: T.ArrayType, k: int) -> Scalar:
     raise NotImplementedError(
-        "array_constructor: ROADMAP A5 ports nested types")
+        "array_constructor: ROADMAP A6 ports nested types")
 
 
 def resolve_row_field(row: T.RowType, field: str) -> Tuple[Scalar, int]:
     """ROW field dereference (``r.name``): returns (scalar, field index)."""
     raise NotImplementedError(
-        f"row field {field!r}: ROADMAP A5 ports nested types")
+        f"row field {field!r}: ROADMAP A6 ports nested types")
 
 
 def resolve_row_field_index(row: T.RowType, i: int) -> Scalar:
     raise NotImplementedError(
-        "row_field_index: ROADMAP A5 ports nested types")
+        "row_field_index: ROADMAP A6 ports nested types")
 
 
 def resolve_row_constructor(field_types: Sequence[T.Type]) -> Scalar:
     raise NotImplementedError(
-        "row_constructor: ROADMAP A5 ports nested types")
+        "row_constructor: ROADMAP A6 ports nested types")
 
 
 # ---------------------------------------------------------------------------
@@ -1383,7 +1383,7 @@ def _resolve_ml_scalar(name: str, args) -> Optional[Scalar]:
     package yet."""
     if name in ("features", "classify", "regress"):
         raise NotImplementedError(
-            f"{name}: ROADMAP A5 ports the ml functions")
+            f"{name}: ROADMAP A10 ports the ml functions")
     return None
 
 
@@ -1452,7 +1452,7 @@ def _td_format(v, fmt: str) -> str:
 def _resolve_geo(name: str, args) -> Optional[Scalar]:
     """Geospatial scalars (presto-geospatial): not in this package yet."""
     raise NotImplementedError(
-        f"{name}: ROADMAP A5 ports the geospatial functions")
+        f"{name}: ROADMAP A10 ports the geospatial functions")
 
 
 # ---------------------------------------------------------------------------

@@ -59,10 +59,12 @@ class LocalQueryRunner:
     def tpch(cls, scale: float = 0.01, config: EngineConfig = DEFAULT,
              session=None, access_control=None,
              device=None) -> "LocalQueryRunner":
+        from presto_tpu_torch.connectors.tpcds import TpcdsConnector
         from presto_tpu_torch.connectors.tpch import TpchConnector
 
         reg = ConnectorRegistry()
         reg.register("tpch", TpchConnector(scale=scale))
+        reg.register("tpcds", TpcdsConnector(scale=scale))
         return cls(reg, "tpch", config, session=session,
                    access_control=access_control, device=device)
 
@@ -108,14 +110,14 @@ class LocalQueryRunner:
             if stmt.analyze or stmt.plan_type != "logical":
                 raise NotImplementedError(
                     "EXPLAIN ANALYZE and the typed EXPLAIN variants are not "
-                    "in presto_tpu_torch yet: ROADMAP A5")
+                    "in presto_tpu_torch yet: ROADMAP A4")
             text = self.explain_text(stmt.statement)
             return QueryResult(["Query Plan"], [T.VARCHAR],
                                [(line,) for line in text.splitlines()])
         if not isinstance(stmt, (t.Query, t.SetOperation)):
             raise NotImplementedError(
                 f"{type(stmt).__name__} statements are not in "
-                "presto_tpu_torch yet: ROADMAP A5 (the single-node "
+                "presto_tpu_torch yet: ROADMAP A4 (the single-node "
                 "statements) ports them")
         return self._execute_query(stmt)
 

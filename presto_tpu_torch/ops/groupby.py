@@ -20,6 +20,9 @@ This module holds the tiers this package runs:
   in that order.
 - **hash**: the resident GroupByHash state of ``ops/hashtable.py``
   (kernel B2 on a CUDA tensor), driven by exec/aggregation.py.
+- **clustered** (``clustered_aggregate``): input already clustered by
+  the keys (the streaming aggregation of exec/streamagg.py): run
+  boundaries give the group ids, no sort.
 - **global** (``global_aggregate``): one output row.
 
 Float group sums are the same bits on every run, on every tier: each
@@ -223,6 +226,77 @@ def grouped_aggregate(
             raise ValueError(f"unknown aggregation primitive {prim}")
         results.append((out, cnt))
     return group_index, num_groups, results
+
+
+def clustered_aggregate(
+    key_columns: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor],
+                                T.Type]],
+    aggs: Sequence[AggIn],
+    num_rows: int,
+    group_capacity: int,
+):
+    """Sort-free grouped aggregation over input already clustered by the
+    key columns (equal keys adjacent): run boundaries come from neighbour
+    comparison, and each group reduces over its run in input order.  The
+    StreamingAggregationOperator kernel
+    (StreamingAggregationOperator.java:38 role): groups keep the input's
+    key order, so the carry across batches is the first and last group
+    only.
+
+    Returns ``(first_pos [group_capacity], num_groups, results)``, every
+    tensor sized by ``group_capacity`` (at least the batch's group count)
+    so that nothing here reads the host: ``num_groups`` is a 0-d tensor,
+    ``first_pos[g]`` the row of group g's first row, and ``results`` one
+    ``(values, count_nonnull)`` pair per aggregate.  Float sums go
+    through ``sorted_segment_sums`` over each run (the same bits on every
+    run), integer sums and counts through exact integer scatters, min
+    and max through ``scatter_reduce``.
+    """
+    cap = key_columns[0][0].shape[0]
+    device = key_columns[0][0].device
+    n = int(num_rows)
+    pad = torch.arange(cap, device=device) >= n
+    key_words, _ = normalize_keys(key_columns, nulls_equal=True)
+    boundary = torch.zeros(cap, dtype=torch.bool, device=device)
+    boundary[:1] = True
+    for w in key_words:
+        w = torch.where(pad, torch.zeros_like(w), w)
+        boundary[1:] |= w[1:] != w[:-1]
+    boundary &= ~pad
+    num_groups = boundary.sum()
+    gid = (torch.cumsum(boundary.to(torch.int64), 0) - 1)[:n]
+    rows = torch.arange(n, device=device)
+    first_pos = torch.full((group_capacity,), cap - 1, dtype=torch.int64,
+                           device=device).scatter_reduce_(0, gid, rows,
+                                                          "amin")
+    lengths = torch.zeros(group_capacity, dtype=torch.int64,
+                          device=device).index_add_(
+        0, gid, torch.ones(n, dtype=torch.int64, device=device))
+
+    results = []
+    for prim, values, valid in aggs:
+        live = (torch.ones(n, dtype=torch.bool, device=device)
+                if valid is None else valid[:n])
+        cnt = torch.zeros(group_capacity, dtype=torch.int64,
+                          device=device).index_add_(0, gid,
+                                                    live.to(torch.int64))
+        if prim == "count":
+            results.append((cnt, cnt))
+            continue
+        v = values[:n]
+        if prim == "sum":
+            v = torch.where(live, v, torch.zeros_like(v))
+            if v.dtype.is_floating_point:
+                out = sorted_segment_sums(v, lengths)
+            else:
+                out = torch.zeros(group_capacity, dtype=v.dtype,
+                                  device=device).index_add_(0, gid, v)
+        elif prim in ("min", "max"):
+            out = _segment_extreme(v, live, gid, group_capacity, prim)
+        else:
+            raise ValueError(f"unknown aggregation primitive {prim}")
+        results.append((out, cnt))
+    return first_pos, num_groups, results
 
 
 def direct_grouped_aggregate(

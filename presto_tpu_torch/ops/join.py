@@ -22,7 +22,7 @@ Eager torch sizes every output exactly: the expansion takes the exact
 output row count, where the JAX package pads to a capacity bucket.  The
 semi and anti joins are masks over the probe rows from the same (lo,
 counts) (``semi_mask``, ``anti_keep_from_parts``).  The ``canonical``
-tier (``canonical_ids``, a union sort of both sides' keys) is ROADMAP A4.
+tier (``canonical_ids``, a union sort of both sides' keys) is ROADMAP A7.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ The reference hangs per-query state off ``Session`` (identity, catalog,
 schema) and checks table access at analysis time through the
 SystemAccessControl SPI, with the session identity.  Session properties
 (SET SESSION), rule-based access control and transactions come with the
-statements that use them (ROADMAP A5).
+statements that use them (ROADMAP A4).
 """
 
 from __future__ import annotations

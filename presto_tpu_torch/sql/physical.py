@@ -14,7 +14,9 @@ This package lowers scans, VALUES, filter/project, aggregation, inner and
 left hash joins (with dynamic filters), semi and anti joins (IN, EXISTS
 and their negations, with a residual for a correlated EXISTS), the cross
 join and EnforceSingleRow (scalar subqueries), UNION ALL, ORDER BY, TopN,
-LIMIT and the output; the runner adds the local exchange.  The planner
+LIMIT, window functions (with the TopNRowNumber fusion of a
+``row_number() <= N`` filter), the streaming aggregation of key-clustered
+scans and the output; the runner adds the local exchange.  The planner
 composes RIGHT and FULL joins and INTERSECT/EXCEPT from these.  Every
 other node raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.  There is no pipeline-fusion post-pass: the chains run
@@ -47,11 +49,17 @@ from presto_tpu_torch.exec.operators import (
     OutputCollectorFactory, TableScanOperatorFactory, ValuesOperatorFactory,
 )
 from presto_tpu_torch.exec.sortop import OrderByOperatorFactory, SortSpec
+from presto_tpu_torch.exec.streamagg import (
+    StreamingAggregationOperatorFactory,
+)
 from presto_tpu_torch.exec.unionop import (
     UnionBuffer, UnionSinkOperatorFactory, UnionSourceOperatorFactory,
 )
+from presto_tpu_torch.exec.windowop import (
+    TopNRowNumberOperatorFactory, WindowOperatorFactory,
+)
 from presto_tpu_torch.expr import build as B
-from presto_tpu_torch.expr.ir import InputRef, RowExpression
+from presto_tpu_torch.expr.ir import Call, Constant, InputRef, RowExpression
 from presto_tpu_torch.sql.plan import (
     AggregationNode, EnforceSingleRowNode, FilterNode, JoinNode, LimitNode,
     OutputNode, PlanAggregate, PlanNode, ProjectNode, SemiJoinNode,
@@ -62,10 +70,9 @@ from presto_tpu_torch.sql.plan import (
 # plan nodes this package does not lower yet -> the ROADMAP item porting
 # them
 _NOT_PORTED = (
-    (WindowNode, "A5 (window functions)"),
-    (UnnestNode, "A5 (unnest)"),
-    (TableWriterNode, "A5 (writes)"),
-    (TableFinishNode, "A5 (writes)"),
+    (UnnestNode, "A6 (unnest)"),
+    (TableWriterNode, "A4 (writes)"),
+    (TableFinishNode, "A4 (writes)"),
 )
 
 
@@ -155,6 +162,11 @@ class PhysicalPlanner:
             chain.append(EnforceSingleRowOperatorFactory(node.types,
                                                          self.device))
             return chain, splits
+        if isinstance(node, WindowNode):
+            chain, splits = self._lower(node.source)
+            chain.append(WindowOperatorFactory(
+                node.partition_channels, node.order_keys, node.functions))
+            return chain, splits
         if isinstance(node, UnionNode):
             buffer = UnionBuffer(len(node.inputs))
             for i, inp in enumerate(node.inputs):
@@ -166,7 +178,7 @@ class PhysicalPlanner:
         for cls, item in _NOT_PORTED:
             if isinstance(node, cls):
                 raise _not_ported(f"{cls.__name__} lowering", item)
-        raise _not_ported(f"{type(node).__name__} lowering", "A5/A6")
+        raise _not_ported(f"{type(node).__name__} lowering", "A4/A6")
 
     def _lower_filter_project(self, node: PlanNode):
         """Fuse adjacent Filter/Project chains into one PageProcessor-style
@@ -181,8 +193,30 @@ class PhysicalPlanner:
         while isinstance(cur, FilterNode):
             filters.append(cur.predicate)
             cur = cur.source
+        if (filters and isinstance(cur, WindowNode)
+                and len(cur.functions) == 1
+                and cur.functions[0].name == "row_number"):
+            # TopNRowNumber fusion (TopNRowNumberOperator.java:38): a
+            # row_number <= N conjunct becomes a per-partition truncation
+            # inside the window sort; filtered rows never materialize
+            rn_ch = len(cur.source.columns)
+            limit, rest = _extract_rn_limit(filters, rn_ch)
+            if limit is not None:
+                chain, splits = self._lower(cur.source)
+                chain.append(TopNRowNumberOperatorFactory(
+                    cur.partition_channels, cur.order_keys, limit,
+                    cur.columns[rn_ch][1]))
+                return self._append_filter_project(
+                    chain, splits, rest, projections,
+                    [t for _, t in cur.columns])
         chain, splits = self._lower(cur)
-        input_types = [t for _, t in cur.columns]
+        return self._append_filter_project(
+            chain, splits, filters, projections,
+            [t for _, t in cur.columns])
+
+    @staticmethod
+    def _append_filter_project(chain, splits, filters, projections,
+                               input_types):
         filt = None
         if filters:
             filt = filters[-1]
@@ -215,7 +249,11 @@ class PhysicalPlanner:
             input_types = pre_types
 
         ngroups = len(node.group_channels)
-        if ngroups:
+        if ngroups and self._streaming_eligible(
+                chain, node.group_channels, agg_channels, input_types):
+            chain.append(StreamingAggregationOperatorFactory(
+                list(node.group_channels), agg_channels, input_types))
+        elif ngroups:
             chain.append(HashAggregationOperatorFactory(
                 list(node.group_channels), agg_channels, input_types))
         else:
@@ -227,6 +265,39 @@ class PhysicalPlanner:
         self._append_finalize(chain, node, key_types, agg_channels,
                               finalize_specs)
         return chain, splits
+
+    def _streaming_eligible(self, chain, group_channels, agg_channels,
+                            input_types) -> bool:
+        """True when the group keys trace to a prefix of the scan's
+        declared sort order (rows arrive clustered by the keys), so the
+        sort-free streaming aggregation applies
+        (StreamingAggregationOperator.java:38; eligibility is the
+        reference's LocalProperties/StreamPropertyDerivations check)."""
+        if not self.config.streaming_aggregation_enabled:
+            return False
+        for ch in agg_channels:
+            if ch.prim not in ("sum", "count", "min", "max"):
+                return False
+            if (ch.prim in ("min", "max") and ch.channel is not None
+                    and input_types[ch.channel].is_dictionary):
+                # the carry merge would compare interning codes
+                return False
+        traced = []
+        scan = None
+        for g in group_channels:
+            hit = scan_column_for_channel(chain, g)
+            if hit is None:
+                return False
+            f, col = hit
+            if scan is None:
+                scan = f
+            elif scan is not f:
+                return False
+            traced.append(col)
+        order = scan.connector.sort_order(
+            scan.connector.get_table(scan.table))
+        k = len(traced)
+        return bool(order) and set(traced) == set(order[:k])
 
     def _lower_final_aggregation(self, node: AggregationNode):
         """FINAL step over a partial's output: [keys..., comp0, comp1, ...].
@@ -369,6 +440,68 @@ class PhysicalPlanner:
     def _name(self, prefix: str) -> str:
         self._counter += 1
         return f"{prefix}{self._counter}"
+
+
+def scan_column_for_channel(factories: Sequence, channel: int):
+    """Trace an output channel of a factory chain back to its scan
+    column through pure InputRef projections.  Returns
+    (TableScanOperatorFactory, column_name) or None (the channel is
+    computed, or the chain has no scan)."""
+    ch = channel
+    for f in reversed(list(factories)):
+        if isinstance(f, FilterProjectOperatorFactory):
+            if ch >= len(f.projections):
+                return None
+            p = f.projections[ch]
+            if not isinstance(p, InputRef):
+                return None
+            ch = p.index
+        elif isinstance(f, TableScanOperatorFactory):
+            if ch >= len(f.columns):
+                return None
+            return f, f.columns[ch]
+        else:
+            return None
+    return None
+
+
+def _extract_rn_limit(filters, rn_channel: int):
+    """Find one ``row_number <= K`` upper bound among the filter
+    conjuncts; returns (K | None, remaining conjuncts)."""
+    from presto_tpu_torch.sql.optimizer import split_and
+
+    conjuncts = []
+    for f in filters:
+        conjuncts.extend(split_and(f))
+    limit = None
+    rest = []
+    for c in conjuncts:
+        k = None
+        if (limit is None and isinstance(c, Call)
+                and c.name in ("le", "lt", "eq", "ge", "gt")
+                and len(c.args) == 2):
+            a, b = c.args
+            op = c.name
+            if isinstance(b, InputRef) and isinstance(a, Constant):
+                a, b = b, a
+                op = {"lt": "gt", "le": "ge",
+                      "gt": "lt", "ge": "le"}.get(op, op)
+            if (isinstance(a, InputRef) and a.index == rn_channel
+                    and isinstance(b, Constant)
+                    and isinstance(b.value, int)):
+                if op == "le":
+                    k = b.value
+                elif op == "lt":
+                    k = b.value - 1
+                elif op == "eq" and b.value == 1:
+                    k = 1
+        if k is not None and k >= 1:
+            # the per-partition truncation IS the bound (le/lt/eq-1 all
+            # keep exactly rows with rn <= k)
+            limit = k
+            continue
+        rest.append(c)
+    return limit, rest
 
 
 def _coerce_to(expr: RowExpression, typ: T.Type) -> RowExpression:

@@ -1182,7 +1182,7 @@ class Planner:
         """UNNEST as a relation (standalone or CROSS JOIN UNNEST(...)):
         not in this package yet."""
         raise NotImplementedError(
-            "UNNEST is not in presto_tpu_torch yet: ROADMAP A5 (unnest)")
+            "UNNEST is not in presto_tpu_torch yet: ROADMAP A6 (unnest)")
 
     def _plan_table(self, r: t.Table,
                     outer: Optional[Scope]) -> RelationPlan:

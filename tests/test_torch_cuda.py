@@ -251,10 +251,97 @@ def test_lookup_ranges_kernel_matches_plain(card):
 
 
 def test_float_group_sums_bit_identical_on_every_tier(card):
-    """C2: the direct (above 32 groups), sort and hash tiers give the
-    same bits on a repeat (and agree with index_add_ to 1e-9)."""
+    """C2: the direct (above 32 groups), sort, hash and clustered
+    (streaming) tiers and a window's segmented scan give the same bits on
+    a repeat (and agree with index_add_ to 1e-9)."""
     out = C.c2_checks(seed=5)
-    assert set(out) == {"direct", "sort", "hash"}
+    assert set(out) == {"direct", "sort", "hash", "clustered", "window"}
+
+
+def _same_rows(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(y, float):
+                assert x == pytest.approx(y, rel=1e-9, abs=0.0)
+            else:
+                assert x == y
+
+
+WINDOW_SQL = """
+select o_custkey, o_orderkey,
+       sum(o_totalprice) over (partition by o_custkey
+                               order by o_orderkey) rsum,
+       avg(o_totalprice) over (partition by o_custkey) pavg,
+       min(o_totalprice) over (partition by o_custkey order by o_orderkey
+                               rows between 2 preceding and current row) mn,
+       rank() over (partition by o_orderpriority order by o_totalprice) rk,
+       lag(o_orderkey) over (partition by o_custkey order by o_orderkey) lg
+from orders order by o_custkey, o_orderkey
+"""
+
+TOPN_SQL = """
+select o_custkey, o_orderkey, rn from (
+    select o_custkey, o_orderkey,
+           row_number() over (partition by o_custkey
+                              order by o_totalprice desc, o_orderkey) rn
+    from orders) t
+where rn <= 2 order by o_custkey, rn
+"""
+
+
+@pytest.mark.parametrize("sql,operator", [(WINDOW_SQL, "WindowOperator"),
+                                          (TOPN_SQL, "TopNRowNumber")])
+def test_window_sql_on_cuda_matches_cpu(card, sql, operator):
+    """Window functions (with partitions cut into chunks: 15,000 orders
+    against 4,096-row batches) and the TopNRowNumber fusion on the card:
+    the same bits on a repeat, the CPU's rows."""
+    from presto_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig(scan_batch_rows=4096)
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card, config=cfg)
+    got = runner.execute(sql).rows
+    assert any(operator in s.operator
+               for s in runner._last_task.operator_stats)
+    assert runner.execute(sql).rows == got
+    want = LocalQueryRunner.tpch(scale=0.01, device="cpu",
+                                 config=cfg).execute(sql).rows
+    _same_rows(got, want)
+
+
+def test_streaming_on_cuda_reads_once_a_batch(card, monkeypatch):
+    """The streaming tier on the card: the CPU's rows, the same bits on a
+    repeat, and one device read a batch."""
+    from presto_tpu_torch.config import EngineConfig
+    from presto_tpu_torch.exec import streamagg as SA
+
+    reads = []
+    real = SA._read_host
+    monkeypatch.setattr(SA, "_read_host",
+                        lambda parts: reads.append(1) or real(parts))
+    sql = ("select l_orderkey, count(*), sum(l_extendedprice), "
+           "min(l_shipdate), max(l_discount) from lineitem "
+           "group by l_orderkey order by l_orderkey")
+    cfg = EngineConfig(scan_batch_rows=4096)
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card, config=cfg)
+    got = runner.execute(sql).rows
+    stats = [s for s in runner._last_task.operator_stats
+             if "StreamingAggregation" in s.operator]
+    assert len(stats) == 1 and len(reads) == stats[0].input_batches > 10
+    assert runner.execute(sql).rows == got
+    want = LocalQueryRunner.tpch(scale=0.01, device="cpu",
+                                 config=cfg).execute(sql).rows
+    _same_rows(got, want)
+
+
+@pytest.mark.parametrize("q", ["q72", "q47", "q67"])
+def test_tpcds_on_cuda_matches_cpu(card, q):
+    runner = LocalQueryRunner.tpch(scale=0.05, device=card)
+    got = runner.execute(C.ds_sql(q)).rows
+    assert runner.execute(C.ds_sql(q)).rows == got
+    want = LocalQueryRunner.tpch(scale=0.05, device="cpu").execute(
+        C.ds_sql(q)).rows
+    _same_rows(got, want)
 
 
 def test_q3_on_cuda_matches_cpu(card):

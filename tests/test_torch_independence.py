@@ -45,7 +45,10 @@ for name in names:
 for name in ("presto_tpu_torch.ops.hashtable",
              "presto_tpu_torch.ops.probe_insert", "presto_tpu_torch.ops.join",
              "presto_tpu_torch.exec.joinop",
-             "presto_tpu_torch.exec.dynamicfilter"):
+             "presto_tpu_torch.exec.dynamicfilter",
+             "presto_tpu_torch.connectors.tpcds",
+             "presto_tpu_torch.ops.window", "presto_tpu_torch.exec.windowop",
+             "presto_tpu_torch.exec.streamagg"):
     assert name in names, name
 
 sql = '''
@@ -71,6 +74,16 @@ order by revenue desc, o_orderdate
 limit 10
 '''
 assert len(runner.execute(q3).rows) == 10
+# the tpcds catalog, a window and a streaming GROUP BY
+ds = runner.execute(
+    "select d_year, count(*), rank() over (order by count(*) desc) "
+    "from tpcds.store_sales, tpcds.date_dim "
+    "where ss_sold_date_sk = d_date_sk group by d_year")
+assert len(ds.rows) == 13, ds.rows
+runner.execute("select l_orderkey, sum(l_quantity) from lineitem "
+               "group by l_orderkey")
+ops = [s.operator for s in runner._last_task.operator_stats]
+assert any("StreamingAggregation" in o for o in ops), ops
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("rows", len(rows))

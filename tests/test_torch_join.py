@@ -372,6 +372,6 @@ def test_lookup_join_refuses_what_is_not_ported():
     bf = HashBuildOperatorFactory([0], [T.DOUBLE])
     bop = bf.create(_ctx(EngineConfig(device_join_probe=False), "build"))
     bop.add_input(_batch([(T.DOUBLE, np.arange(4.0), None)], 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         bop.finish()
 
