@@ -329,40 +329,50 @@ def coerce_value(typ: T.Type, v: Any, lenient: bool = False) -> Any:
 
 
 def compute_statistics(schema: TableSchema, batches) -> TableStatistics:
-    """Full-scan column statistics from host batches (ANALYZE support
-    shared by storage connectors; presto-spi ColumnStatistics role)."""
+    """Full-scan column statistics (ANALYZE support shared by storage
+    connectors; presto-spi ColumnStatistics role) of batches of tensors,
+    with torch ops on their device: no column comes to the host.  A
+    dictionary column's batches share one dictionary (as a memory
+    table's do); its codes are counted on the device, and only the
+    strings of the codes present are read on the host (their low, high
+    and total length)."""
     import numpy as np
+    import torch
 
+    batches = [b for b in batches if b.num_rows]
     nrows = sum(b.num_rows for b in batches)
     stats = TableStatistics(row_count=float(nrows))
     for ci, cn in enumerate(schema.column_names()):
-        vals = []
-        nulls = 0
-        for b in batches:
-            col = b.columns[ci]
-            n = b.num_rows
-            v = np.asarray(col.values)[:n]
-            if col.valid is not None:
-                ok = np.asarray(col.valid)[:n].astype(bool)
-                nulls += int(n - ok.sum())
-                v = v[ok]
-            if col.dictionary is not None:
-                v = np.asarray(
-                    [col.dictionary.values[int(c)] for c in v], object)
-            vals.append(v)
-        allv = (np.concatenate(vals) if vals
-                else np.asarray([], np.int64))
+        cols = [(b.columns[ci], b.num_rows) for b in batches]
+        if not cols:
+            continue
+        dictionary = cols[0][0].dictionary
+        if any(c.dictionary is not dictionary for c, _ in cols):
+            raise ValueError(f"column {cn}: batches with different "
+                             "dictionaries")
+        allv = torch.cat([c.values[:n] for c, n in cols])
+        if any(c.valid is not None for c, _ in cols):
+            allv = allv[torch.cat([
+                torch.ones(n, dtype=torch.bool, device=allv.device)
+                if c.valid is None else c.valid[:n] for c, n in cols])]
         if nrows:
-            stats.nulls_fraction[cn] = nulls / nrows
-        if allv.size:
-            stats.ndv[cn] = float(len(set(allv.tolist())))
-            try:
-                lo, hi = allv.min(), allv.max()
-                stats.low[cn] = lo.item() if hasattr(lo, "item") else lo
-                stats.high[cn] = hi.item() if hasattr(hi, "item") else hi
-            except (TypeError, ValueError):
-                pass
-            stats.data_size[cn] = float(
-                sum(len(str(x)) for x in allv)
-                if allv.dtype == object else allv.nbytes)
+            stats.nulls_fraction[cn] = (nrows - allv.shape[0]) / nrows
+        if not allv.shape[0]:
+            continue
+        if dictionary is not None:
+            counts = torch.bincount(allv.long()).cpu().numpy()
+            present = np.nonzero(counts)[0]
+            strings = [dictionary.values[int(c)] for c in present]
+            stats.ndv[cn] = float(len(set(strings)))
+            stats.low[cn] = min(strings)
+            stats.high[cn] = max(strings)
+            stats.data_size[cn] = float(sum(
+                int(counts[c]) * len(str(s))
+                for c, s in zip(present, strings)))
+        else:
+            distinct = torch.unique(allv)
+            stats.ndv[cn] = float(distinct.shape[0])
+            stats.low[cn] = distinct[0].item()
+            stats.high[cn] = distinct[-1].item()
+            stats.data_size[cn] = float(allv.shape[0] * allv.element_size())
     return stats

@@ -248,6 +248,46 @@ class LimitOperatorFactory(OperatorFactory):
         return LimitOperator(ctx, self.limit)
 
 
+class TableWriterOperator(Operator):
+    """Write path terminal: streams batches into a connector PageSink and
+    holds the committed row count at finish (the TableWriterOperator +
+    TableFinishOperator pair, presto-main/.../operator/TableWriter
+    Operator.java:58 / TableFinishOperator.java:46, fused — the engine's
+    per-query writes are single-commit).  ``Driver.process`` never pulls
+    a terminal operator, so the count is read from ``rows_written``."""
+
+    def __init__(self, ctx: OperatorContext, sink):
+        super().__init__(ctx)
+        self.sink = sink
+        self._rows: Optional[int] = None
+
+    def add_input(self, batch: Batch) -> None:
+        self.ctx.stats.input_rows += batch.num_rows
+        self.sink.append(batch)
+
+    def finish(self) -> None:
+        if not self._finishing:
+            super().finish()
+            self._rows = self.sink.finish()
+
+    def is_finished(self) -> bool:
+        return self._finishing
+
+    @property
+    def rows_written(self) -> Optional[int]:
+        return self._rows
+
+
+class TableWriterOperatorFactory(OperatorFactory):
+    def __init__(self, sink):
+        self.sink = sink
+        self.op: Optional[TableWriterOperator] = None
+
+    def create(self, ctx: OperatorContext) -> TableWriterOperator:
+        self.op = TableWriterOperator(ctx, self.sink)
+        return self.op
+
+
 class OutputCollector(Operator):
     """Terminal sink gathering result batches on the host
     (TaskOutputOperator / test MaterializedResult role)."""

@@ -5,12 +5,17 @@ The reference's LocalQueryRunner (presto-main/.../testing/LocalQueryRunner
 in one process with hand-pumped drivers.  Same role here:
 
     runner = LocalQueryRunner.tpch(scale=1.0)          # on cuda
-    result = runner.execute("select count(*) from lineitem")
+    runner.execute("create table memory.li as select * from lineitem")
+    result = runner.execute("select count(*) from memory.li")
     result.rows
 
 The runner carries its device: ``cuda`` unless the caller names another
-(``device="cpu"``, as the tests do).  It runs ``SELECT`` and ``EXPLAIN``;
-every other statement raises ``NotImplementedError`` naming the ROADMAP
+(``device="cpu"``, as the tests do).  Its ``memory`` catalog keeps its
+tables on that device.  It runs queries and EXPLAIN; CREATE TABLE [AS],
+INSERT, DELETE, DROP TABLE, ALTER TABLE ... RENAME, ANALYZE and SHOW
+STATS; SHOW TABLES, SHOW COLUMNS/DESCRIBE and SHOW CREATE TABLE;
+SET/RESET/SHOW SESSION; USE; START TRANSACTION, COMMIT and ROLLBACK.
+Every other statement raises ``NotImplementedError`` naming the ROADMAP
 item that ports it.
 """
 
@@ -18,14 +23,20 @@ from __future__ import annotations
 
 import dataclasses
 import uuid
-from typing import List, Tuple
+from typing import List, Optional, Tuple
+
+import torch
 
 from presto_tpu_torch import events as ev
 from presto_tpu_torch import types as T
 from presto_tpu_torch.config import DEFAULT, EngineConfig, resolve_device
-from presto_tpu_torch.connectors.api import ConnectorRegistry
+from presto_tpu_torch.connectors.api import (
+    ColumnMetadata, ConnectorRegistry, TableSchema,
+)
 from presto_tpu_torch.exec.runner import execute_pipelines
-from presto_tpu_torch.session import AllowAllAccessControl, Session
+from presto_tpu_torch.session import (
+    AllowAllAccessControl, Session, TransactionManager,
+)
 from presto_tpu_torch.sql import tree as t
 from presto_tpu_torch.sql.optimizer import optimize
 from presto_tpu_torch.sql.parser import parse_statement
@@ -33,12 +44,58 @@ from presto_tpu_torch.sql.physical import PhysicalPlanner
 from presto_tpu_torch.sql.plan import TableScanNode, format_plan
 from presto_tpu_torch.sql.planner import Metadata, Planner
 
+# statements of the JAX package's runner that this package does not run
+# yet -> the ROADMAP item that ports them
+_NOT_PORTED = (
+    ((t.CreateView, t.DropView, t.ShowCreateView), "A4b (views)"),
+    ((t.Prepare, t.ExecutePrepared, t.Deallocate, t.DescribeInput,
+      t.DescribeOutput), "A4b (prepared statements)"),
+    ((t.ShowCatalogs, t.ShowSchemas, t.ShowFunctions),
+     "A4b (the system and information_schema catalogs)"),
+    ((t.Grant, t.Revoke), "A4b (GRANT/REVOKE)"),
+    ((t.CallProcedure,), "A4b (kill_query)"),
+)
+
 
 @dataclasses.dataclass
 class QueryResult:
     column_names: List[str]
     column_types: List[T.Type]
     rows: List[Tuple]
+
+
+class _StagingSink:
+    """PageSink wrapper that buffers until the enclosing explicit
+    transaction commits (TransactionManager commit action)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.batches = []
+        self._rows = 0
+
+    def append(self, batch) -> None:
+        self.batches.append(batch)
+        self._rows += batch.num_rows
+
+    def finish(self) -> int:
+        return self._rows
+
+    def publish(self) -> None:
+        for b in self.batches:
+            self.inner.append(b)
+        self.inner.finish()
+        self.batches = []
+
+
+def _like(value: str, pattern: Optional[str]) -> bool:
+    """SQL LIKE for SHOW ... LIKE filters (% and _ wildcards)."""
+    if pattern is None:
+        return True
+    import re
+
+    rx = "".join(".*" if c == "%" else "." if c == "_" else re.escape(c)
+                 for c in pattern)
+    return re.fullmatch(rx, value) is not None
 
 
 class LocalQueryRunner:
@@ -51,6 +108,7 @@ class LocalQueryRunner:
         self.device = resolve_device(device)
         self.session = session or Session(catalog=default_catalog)
         self.access_control = access_control or AllowAllAccessControl()
+        self.transaction_manager = TransactionManager()
         self.event_bus = ev.EventBus()
         self._last_task = None
         self._query_seq = 0
@@ -59,12 +117,18 @@ class LocalQueryRunner:
     def tpch(cls, scale: float = 0.01, config: EngineConfig = DEFAULT,
              session=None, access_control=None,
              device=None) -> "LocalQueryRunner":
+        from presto_tpu_torch.connectors.memory import (
+            BlackHoleConnector, MemoryConnector,
+        )
         from presto_tpu_torch.connectors.tpcds import TpcdsConnector
         from presto_tpu_torch.connectors.tpch import TpchConnector
 
+        device = resolve_device(device)
         reg = ConnectorRegistry()
         reg.register("tpch", TpchConnector(scale=scale))
         reg.register("tpcds", TpcdsConnector(scale=scale))
+        reg.register("memory", MemoryConnector(device))
+        reg.register("blackhole", BlackHoleConnector())
         return cls(reg, "tpch", config, session=session,
                    access_control=access_control, device=device)
 
@@ -110,16 +174,312 @@ class LocalQueryRunner:
             if stmt.analyze or stmt.plan_type != "logical":
                 raise NotImplementedError(
                     "EXPLAIN ANALYZE and the typed EXPLAIN variants are not "
-                    "in presto_tpu_torch yet: ROADMAP A4")
+                    "in presto_tpu_torch yet: ROADMAP A4b")
             text = self.explain_text(stmt.statement)
             return QueryResult(["Query Plan"], [T.VARCHAR],
                                [(line,) for line in text.splitlines()])
+        for classes, item in _NOT_PORTED:
+            if isinstance(stmt, classes):
+                raise NotImplementedError(
+                    f"{type(stmt).__name__} statements are not in "
+                    f"presto_tpu_torch yet: ROADMAP {item}")
+        if isinstance(stmt, t.ShowTables):
+            cat = stmt.catalog or self.metadata.default_catalog
+            names = self.registry.get(cat).list_tables()
+            return QueryResult(["Table"], [T.VARCHAR],
+                               [(n,) for n in sorted(names)
+                                if _like(n, stmt.like)])
+        if isinstance(stmt, t.ShowColumns):
+            _, _, _, schema = self.metadata.resolve_table(stmt.table)
+            return QueryResult(
+                ["Column", "Type"], [T.VARCHAR, T.VARCHAR],
+                [(n, schema.column_type(n).display())
+                 for n in schema.column_names()])
+        if isinstance(stmt, t.SetSession):
+            self.session.set_property(stmt.name, stmt.value)
+            return self._ok()
+        if isinstance(stmt, t.ResetSession):
+            self.session.reset_property(stmt.name)
+            return self._ok()
+        if isinstance(stmt, t.ShowSession):
+            return QueryResult(
+                ["Name", "Value", "Default"],
+                [T.VARCHAR, T.VARCHAR, T.VARCHAR],
+                self.session.show_properties(self.config))
+        if isinstance(stmt, t.CreateTable):
+            return self._create_table(stmt)
+        if isinstance(stmt, t.CreateTableAs):
+            return self._create_table_as(stmt)
+        if isinstance(stmt, t.Insert):
+            return self._insert(stmt)
+        if isinstance(stmt, t.DropTable):
+            # unknown catalog is an error even under IF EXISTS; only a
+            # missing table is forgiven
+            cat, _tbl = self.metadata.split_name(stmt.table)
+            self.registry.get(cat)
+            try:
+                catalog, name, conn, _ = self.metadata.resolve_table(
+                    stmt.table)
+            except Exception:
+                if stmt.if_exists:
+                    return self._ok()
+                raise
+            self.access_control.check_can_drop_table(
+                self.session.user, catalog, name)
+            conn.drop_table(name)
+            return self._ok()
+        if isinstance(stmt, t.Delete):
+            return self._delete(stmt)
+        if isinstance(stmt, t.RenameTable):
+            catalog, name, conn, _ = self.metadata.resolve_table(stmt.table)
+            if len(stmt.new_name) == 1:
+                new_cat, new_name = catalog, stmt.new_name[0]
+            else:
+                new_cat, new_name = self.metadata.split_name(stmt.new_name)
+            if new_cat != catalog:
+                raise ValueError("RENAME cannot move between catalogs")
+            self.access_control.check_can_rename_table(
+                self.session.user, catalog, name)
+            conn.rename_table(name, new_name)
+            self.access_control.notify_table_renamed(catalog, name,
+                                                     new_name)
+            return self._ok()
+        if isinstance(stmt, t.ShowStats):
+            return self._show_stats(stmt)
+        if isinstance(stmt, t.ShowCreateTable):
+            _, name, _, schema = self.metadata.resolve_table(stmt.table)
+            cols = ",\n".join(
+                f"   {n} {schema.column_type(n).display()}"
+                for n in schema.column_names())
+            ddl = f"CREATE TABLE {'.'.join(stmt.table)} (\n{cols}\n)"
+            return QueryResult(["Create Table"], [T.VARCHAR], [(ddl,)])
+        if isinstance(stmt, t.Use):
+            self.registry.get(stmt.catalog)  # raises for unknown catalog
+            self.session.catalog = stmt.catalog
+            self.session.schema = stmt.schema
+            self.metadata.default_catalog = stmt.catalog
+            return self._ok()
+        if isinstance(stmt, t.StartTransaction):
+            if self.session.txn is not None:
+                raise ValueError("transaction already in progress")
+            self.session.txn = self.transaction_manager.begin(
+                auto_commit=False)
+            return self._ok()
+        if isinstance(stmt, t.Commit):
+            if self.session.txn is None:
+                raise ValueError("no transaction in progress")
+            self.transaction_manager.commit(self.session.txn)
+            self.session.txn = None
+            return self._ok()
+        if isinstance(stmt, t.Rollback):
+            if self.session.txn is None:
+                raise ValueError("no transaction in progress")
+            self.transaction_manager.abort(self.session.txn)
+            self.session.txn = None
+            return self._ok()
+        if isinstance(stmt, t.Analyze):
+            _, name, conn, _ = self.metadata.resolve_table(stmt.table)
+            conn.collect_statistics(conn.get_table(name))
+            return self._ok()
         if not isinstance(stmt, (t.Query, t.SetOperation)):
-            raise NotImplementedError(
-                f"{type(stmt).__name__} statements are not in "
-                "presto_tpu_torch yet: ROADMAP A4 (the single-node "
-                "statements) ports them")
+            raise ValueError(f"unsupported statement {type(stmt).__name__}")
         return self._execute_query(stmt)
+
+    @staticmethod
+    def _ok() -> QueryResult:
+        return QueryResult(["result"], [T.BOOLEAN], [(True,)])
+
+    def _show_stats(self, stmt: t.ShowStats) -> QueryResult:
+        _, name, conn, schema = self.metadata.resolve_table(stmt.table)
+        stats = conn.table_statistics(conn.get_table(name))
+        names = ["column_name", "data_size", "distinct_values_count",
+                 "nulls_fraction", "row_count", "low_value", "high_value"]
+        types = [T.VARCHAR, T.DOUBLE, T.DOUBLE, T.DOUBLE, T.DOUBLE,
+                 T.VARCHAR, T.VARCHAR]
+        rows: List[Tuple] = []
+        if stats is not None:
+            for cn in schema.column_names():
+                rows.append((
+                    cn,
+                    stats.data_size.get(cn),
+                    stats.ndv.get(cn),
+                    stats.nulls_fraction.get(cn),
+                    None,
+                    str(stats.low[cn]) if cn in stats.low else None,
+                    str(stats.high[cn]) if cn in stats.high else None))
+            rows.append((None, None, None, None, float(stats.row_count),
+                         None, None))
+        return QueryResult(names, types, rows)
+
+    def _delete(self, stmt: t.Delete) -> QueryResult:
+        """DELETE FROM t WHERE pred: the predicate is evaluated
+        connector-side on each stored batch's device, as the filter of
+        FilterProjectOperator is (the reference's beginDelete +
+        DeleteOperator + rowId path, presto-main/.../operator/
+        DeleteOperator.java:39, collapsed to a mask-rewrite since storage
+        is engine-local).  A NULL predicate deletes nothing."""
+        from presto_tpu_torch.expr.compile import evaluate
+        from presto_tpu_torch.expr.xp import TorchXp
+        from presto_tpu_torch.sql.planner import Field, Scope, Translator
+
+        catalog, name, conn, schema = self.metadata.resolve_table(
+            stmt.table)
+        self.access_control.check_can_delete(
+            self.session.user, catalog, name)
+        handle = conn.get_table(name)
+        if stmt.where is None:
+            def mask_fn(b):
+                return torch.ones(b.num_rows, dtype=torch.bool,
+                                  device=b.device)
+        else:
+            scope = Scope([Field(n, name, schema.column_type(n))
+                           for n in schema.column_names()], None)
+            pred = Translator(scope).translate(stmt.where)
+            if pred.type != T.BOOLEAN:
+                raise ValueError("DELETE predicate must be boolean")
+
+            def mask_fn(b):
+                xp = TorchXp(b.device)
+                col = evaluate(pred, b, xp)
+                mask = xp.asarray(col.values)[:b.num_rows].bool()
+                if col.valid is not None:
+                    mask = mask & xp.asarray(col.valid)[:b.num_rows]
+                return mask
+
+        deleted = conn.delete_rows(handle, mask_fn)
+        return QueryResult(["rows"], [T.BIGINT], [(deleted,)])
+
+    # --- DML (TableWriter path, SURVEY §2.6 write operators) ---------------
+    def _resolve_write_target(self, table):
+        """catalog + bare table name for CREATE/INSERT targets."""
+        parts = tuple(table)
+        if len(parts) == 1:
+            return self.metadata.default_catalog, parts[0]
+        if len(parts) == 2:
+            return parts[0], parts[1]
+        raise ValueError(f"bad table name {'.'.join(parts)}")
+
+    def _create_table(self, stmt: t.CreateTable) -> QueryResult:
+        catalog, name = self._resolve_write_target(stmt.table)
+        self.access_control.check_can_create_table(
+            self.session.user, catalog, name)
+        conn = self.registry.get(catalog)
+        if stmt.if_not_exists and self._table_exists(conn, name):
+            return self._ok()
+        schema = TableSchema(name, tuple(
+            ColumnMetadata(cn, T.parse_type(ct))
+            for cn, ct in stmt.columns))
+        conn.create_table(name, schema, dict(stmt.properties) or None)
+        return self._ok()
+
+    @staticmethod
+    def _table_exists(conn, name: str) -> bool:
+        try:
+            return conn.get_table(name) is not None
+        except Exception:
+            return False
+
+    def prepare_ctas(self, stmt: t.CreateTableAs):
+        """Plan CTAS: returns (logical OutputNode | None-if-exists, conn,
+        handle, catalog, name)."""
+        logical = Planner(self.metadata).plan(stmt.query)
+        catalog, name = self._resolve_write_target(stmt.table)
+        self.access_control.check_can_create_table(
+            self.session.user, catalog, name)
+        conn = self.registry.get(catalog)
+        if stmt.if_not_exists and self._table_exists(conn, name):
+            return None, conn, None, catalog, name
+        schema = TableSchema(name, tuple(
+            ColumnMetadata(cn, typ) for cn, typ in logical.columns))
+        handle = conn.create_table(name, schema,
+                                   dict(stmt.properties) or None)
+        return logical, conn, handle, catalog, name
+
+    def _create_table_as(self, stmt: t.CreateTableAs) -> QueryResult:
+        logical, conn, handle, _, _ = self.prepare_ctas(stmt)
+        if logical is None:
+            return QueryResult(["rows"], [T.BIGINT], [(0,)])
+        return self._write(logical, conn, handle)
+
+    def prepare_insert(self, stmt: t.Insert):
+        """Plan INSERT with column alignment/coercion: returns
+        (logical OutputNode, conn, handle, catalog, name)."""
+        from presto_tpu_torch.expr import build as B
+        from presto_tpu_torch.sql.plan import OutputNode, ProjectNode
+
+        catalog, name = self._resolve_write_target(stmt.table)
+        self.access_control.check_can_insert(
+            self.session.user, catalog, name)
+        conn = self.registry.get(catalog)
+        handle = conn.get_table(name)
+        schema = conn.table_schema(handle)
+
+        if isinstance(stmt.source, t.InlineValues):
+            query: t.Node = t.Query(
+                (t.SelectItem(t.Star()),), (stmt.source,))
+        else:
+            query = stmt.source
+        logical = Planner(self.metadata).plan(query)
+
+        src_cols = stmt.columns or tuple(schema.column_names())
+        if len(logical.columns) != len(src_cols):
+            raise ValueError(
+                f"INSERT has {len(logical.columns)} columns, expected "
+                f"{len(src_cols)}")
+        # align + coerce to the table's column order and types; unnamed
+        # target columns get NULL
+        by_name = dict(zip(src_cols, range(len(src_cols))))
+        exprs = []
+        for cn in schema.column_names():
+            typ = schema.column_type(cn)
+            if cn in by_name:
+                i = by_name[cn]
+                ref = B.ref(i, logical.columns[i][1])
+                exprs.append(ref if ref.type == typ else B.cast(ref, typ))
+            else:
+                exprs.append(B.null(typ))
+        cols = tuple((cn, schema.column_type(cn))
+                     for cn in schema.column_names())
+        project = ProjectNode(logical.source, tuple(exprs), cols)
+        return OutputNode(project, cols), conn, handle, catalog, name
+
+    def _insert(self, stmt: t.Insert) -> QueryResult:
+        logical, conn, handle, _, _ = self.prepare_insert(stmt)
+        return self._write(logical, conn, handle)
+
+    def _write(self, logical, conn, handle) -> QueryResult:
+        from presto_tpu_torch.exec.operators import TableWriterOperatorFactory
+
+        cfg = self.session.effective_config(self.config)
+        # the JAX package plans writes with the default optimizer
+        # settings; the session's apply to their execution
+        optimized = optimize(logical, self.metadata)
+        self._check_scans(optimized)
+        planner = PhysicalPlanner(self.registry, self.device, cfg)
+        sink = conn.page_sink(handle)
+        explicit = self.session.txn
+        if explicit is not None:
+            # START TRANSACTION write: stage pages; publish at COMMIT
+            # (ROLLBACK discards).  DDL stays non-transactional, matching
+            # most reference connectors.
+            sink = _StagingSink(sink)
+            explicit.commit_actions.append(sink.publish)
+        writer = TableWriterOperatorFactory(sink)
+        pipelines = planner.plan_fragment(optimized.source, writer)
+        # auto-commit: the PageSink's finish IS the commit point; failures
+        # before it leave the table untouched
+        txn = explicit or self.transaction_manager.begin()
+        try:
+            execute_pipelines(pipelines, cfg)
+        except Exception:
+            self.transaction_manager.abort(txn)
+            if explicit is not None:
+                self.session.txn = None
+            raise
+        if explicit is None:
+            self.transaction_manager.commit(txn)
+        return QueryResult(["rows"], [T.BIGINT],
+                           [(writer.op.rows_written,)])
 
     def explain(self, sql: str) -> str:
         stmt = parse_statement(sql)
@@ -130,7 +490,7 @@ class LocalQueryRunner:
     def explain_text(self, stmt: t.Node) -> str:
         if not isinstance(stmt, (t.Query, t.SetOperation)):
             raise ValueError("EXPLAIN requires a query")
-        cfg = self.config
+        cfg = self.session.effective_config(self.config)
         logical = Planner(self.metadata).plan(stmt)
         optimized = optimize(logical, self.metadata, cfg)
         # surface the optimizer's estimates alongside the plan (the
@@ -150,7 +510,7 @@ class LocalQueryRunner:
             self._check_scans(s)
 
     def _execute_query(self, q: t.Node) -> QueryResult:
-        cfg = self.config
+        cfg = self.session.effective_config(self.config)
         logical = Planner(self.metadata).plan(q)
         optimized = optimize(logical, self.metadata, cfg)
         self._check_scans(optimized)

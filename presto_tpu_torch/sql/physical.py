@@ -16,7 +16,8 @@ and their negations, with a residual for a correlated EXISTS), the cross
 join and EnforceSingleRow (scalar subqueries), UNION ALL, ORDER BY, TopN,
 LIMIT, window functions (with the TopNRowNumber fusion of a
 ``row_number() <= N`` filter), the streaming aggregation of key-clustered
-scans and the output; the runner adds the local exchange.  The planner
+scans and the output, or in its place the table writer of an INSERT or
+CTAS (``plan_fragment``); the runner adds the local exchange.  The planner
 composes RIGHT and FULL joins and INTERSECT/EXCEPT from these.  Every
 other node raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.  There is no pipeline-fusion post-pass: the chains run
@@ -71,8 +72,8 @@ from presto_tpu_torch.sql.plan import (
 # them
 _NOT_PORTED = (
     (UnnestNode, "A6 (unnest)"),
-    (TableWriterNode, "A4 (writes)"),
-    (TableFinishNode, "A4 (writes)"),
+    (TableWriterNode, "A13 (distributed writes)"),
+    (TableFinishNode, "A13 (distributed writes)"),
 )
 
 
@@ -109,6 +110,17 @@ class PhysicalPlanner:
         return PhysicalPlan(self._done_pipelines, collector,
                             [n for n, _ in root.columns],
                             [t for _, t in root.columns])
+
+    def plan_fragment(self, root: PlanNode,
+                      sink_factory) -> List[Pipeline]:
+        """Lower ``root`` and terminate it with ``sink_factory`` (the
+        single-process write path's TableWriter) instead of the output
+        collector."""
+        factories, splits = self._lower(root)
+        factories.append(sink_factory)
+        self._done_pipelines.append(
+            Pipeline(factories, splits, name="fragment"))
+        return self._done_pipelines
 
     # -- lowering -----------------------------------------------------------
     def _lower(self, node: PlanNode):
@@ -178,7 +190,9 @@ class PhysicalPlanner:
         for cls, item in _NOT_PORTED:
             if isinstance(node, cls):
                 raise _not_ported(f"{cls.__name__} lowering", item)
-        raise _not_ported(f"{type(node).__name__} lowering", "A4/A6")
+        # the remote sources of a plan fragment
+        raise _not_ported(f"{type(node).__name__} lowering",
+                          "A13 (distributed tier)")
 
     def _lower_filter_project(self, node: PlanNode):
         """Fuse adjacent Filter/Project chains into one PageProcessor-style

@@ -1,7 +1,9 @@
 """presto_tpu_torch on a CUDA card: the hand-written kernels against
 their plain PyTorch versions, the repeat-run bit identity of the float
-group sums on every tier, and SQL on cuda against the same SQL on the
-CPU.  Every test here needs the card and skips without one.
+group sums on every tier, SQL on cuda against the same SQL on the CPU,
+and the memory catalog's tables on the card (no copy to scan them, one
+read of the card a stored batch to DELETE, no column to the host to
+ANALYZE).  Every test here needs the card and skips without one.
 
 This file imports neither jax nor presto_tpu, so it also runs where jax
 is not installed:
@@ -573,3 +575,124 @@ def test_semi_anti_probe_batch_reads_the_card_once(card, max_build_rows,
     syncs = [w for w in seen if "synchroniz" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in syncs]
     assert bf.lookup.get().mode == ("hash" if max_build_rows else "single")
+
+
+# -- tables on the card: the memory catalog ---------------------------------
+
+MEM_SCALE = 0.05
+
+
+def _memory_runner(device):
+    runner = LocalQueryRunner.tpch(scale=MEM_SCALE, device=device)
+    runner.execute("create table memory.lineitem as "
+                   "select * from tpch.lineitem")
+    return runner
+
+
+def _stored(runner, table="lineitem"):
+    return runner.registry.get("memory").tables[table].batches
+
+
+def test_memory_tables_stay_on_the_card(card):
+    """Stored batches lie on cuda, compact and holding no storage beyond
+    their rows, whatever reached the writer: scan batches, a VALUES row
+    built on the host, a global aggregate's row."""
+    runner = _memory_runner(card)
+    runner.execute("insert into memory.lineitem (l_orderkey, l_comment) "
+                   "values (-1, 'x')")
+    runner.execute("insert into memory.lineitem (l_orderkey, l_quantity) "
+                   "select count(*), sum(l_quantity) from tpch.lineitem")
+    batches = _stored(runner)
+    assert len(batches) > 2
+    for b in batches:
+        assert b.device.type == "cuda"
+        assert b.capacity == b.num_rows
+        for c in b.columns:
+            assert c.values.is_cuda
+            assert c.values.untyped_storage().nbytes() == \
+                c.values.numel() * c.values.element_size()
+
+
+def test_memory_scan_copies_nothing_to_the_card(card, monkeypatch):
+    """A scan of memory.lineitem hands on the stored tensors: no copy from
+    the host to the card, and the scanned tensors are the stored ones."""
+    from presto_tpu_torch import batch as batch_mod
+    from presto_tpu_torch.exec import operators as ops_mod
+
+    runner = _memory_runner(card)
+    stored = {c.values.data_ptr() for b in _stored(runner)
+              for c in b.columns}
+    in_scan, copies, seen = [], [], []
+    real_to_tensor = batch_mod._to_tensor
+    real_get = ops_mod.TableScanOperator.get_output
+
+    def to_tensor(a, device):
+        if in_scan and not (isinstance(a, torch.Tensor) and a.is_cuda):
+            copies.append(a)
+        return real_to_tensor(a, device)
+
+    def get_output(self):
+        in_scan.append(True)
+        try:
+            out = real_get(self)
+        finally:
+            in_scan.pop()
+        if out is not None:
+            seen.extend(c.values.data_ptr() for c in out.columns)
+        return out
+
+    monkeypatch.setattr(batch_mod, "_to_tensor", to_tensor)
+    monkeypatch.setattr(ops_mod.TableScanOperator, "get_output",
+                        get_output)
+    runner.execute("select count(*), sum(l_quantity) from memory.lineitem")
+    assert seen and set(seen) <= stored
+    assert not copies
+
+
+@pytest.mark.parametrize("where", ["l_quantity > 45",
+                                   "l_returnflag = 'R'"])
+def test_delete_reads_the_card_once_a_batch(card, where):
+    """DELETE evaluates its predicate on the card and keeps the survivors
+    with a gather: one read of the card a stored batch (the survivors'
+    positions), and the rows the CPU's DELETE leaves."""
+    runner, cpu = _memory_runner(card), _memory_runner("cpu")
+    stored = len(_stored(runner))
+    res, sites, copy_syncs = C.host_syncs(lambda: runner.execute(
+        f"delete from memory.lineitem where {where}"))
+    assert 0 < sum(sites.values()) - copy_syncs <= stored, sites
+    assert res.rows == cpu.execute(
+        f"delete from memory.lineitem where {where}").rows
+    sql = ("select l_returnflag, count(*), sum(l_orderkey), "
+           "sum(l_linenumber) from memory.lineitem group by 1 order by 1")
+    assert runner.execute(sql).rows == cpu.execute(sql).rows
+
+
+def test_analyze_on_cuda_matches_cpu(card):
+    """ANALYZE over batches on the card gives the statistics of the same
+    rows on the CPU and copies no column to the host: only the counts of
+    a dictionary's codes and single values."""
+    runner, cpu = _memory_runner(card), _memory_runner("cpu")
+    _, sizes = C.host_copies(
+        lambda: runner.execute("analyze memory.lineitem"))
+    cpu.execute("analyze memory.lineitem")
+    largest = max(len(c.dictionary) for c in _stored(runner)[0].columns
+                  if c.dictionary is not None)
+    assert sizes and max(sizes) <= largest
+    sql = "show stats for memory.lineitem"
+    assert runner.execute(sql).rows == cpu.execute(sql).rows
+
+
+def test_q1_over_memory_on_cuda_matches_cpu(card):
+    runner, cpu = _memory_runner(card), _memory_runner("cpu")
+    sql = Q1.replace("from lineitem", "from memory.lineitem")
+    before = S.LAUNCHES.count
+    got = runner.execute(sql).rows
+    assert S.LAUNCHES.count > before
+    want = cpu.execute(sql).rows
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(y, float):
+                assert x == pytest.approx(y, rel=1e-9, abs=0.0)
+            else:
+                assert x == y

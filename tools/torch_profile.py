@@ -4,6 +4,12 @@
     python3 tools/torch_profile.py --scale 1 --query ds:q72 --query ds:q67
     python3 tools/torch_profile.py --scale 1 --query q18 --query orderkey \
         --ab streaming_aggregation_enabled --rounds 2
+    python3 tools/torch_profile.py --scale 1 --query q1 --query q3 --memory
+
+``--memory`` first copies the TPC-H tables each query scans into the
+memory catalog on the card (``create table memory.<t> as select * from
+tpch.<t>``, one ``ctas`` line each with its wall) and profiles the query
+over them, so the generator is out of the wall.
 
 ``--query ds:<file>`` runs a TPC-DS suite file (``tests/tpcds_suite/
 <file>.sql``, as phase 6 of chip_smoke.py runs it) from the tpcds catalog
@@ -130,6 +136,28 @@ def ab(flag: str, rounds: int, scale: float, queries, card: str,
             "rows": len(rows[True]), "card": card}), flush=True)
 
 
+def to_memory(runner, sql: str, card: str) -> None:
+    """Copy every tpch table ``sql`` scans into the memory catalog (once
+    a table), then ``USE memory`` so the query reads the copies."""
+    import torch
+
+    runner.execute("use tpch")
+    have = set(runner.registry.get("memory").list_tables())
+    for table in sorted(set(re.findall(r"TableScan tpch\.(\w+)",
+                                       runner.explain(sql))) - have):
+        t0 = time.perf_counter()
+        rows = runner.execute(f"create table memory.{table} as "
+                              f"select * from tpch.{table}").rows[0][0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batches = runner.registry.get("memory").tables[table].batches
+        print(json.dumps({
+            "ctas": table, "rows": rows, "wall_s": wall,
+            "bytes_on_card": sum(b.size_bytes for b in batches),
+            "card": card}), flush=True)
+    runner.execute("use memory")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
@@ -138,10 +166,17 @@ def main() -> int:
     ap.add_argument("--ab", metavar="FLAG",
                     help="time FLAG (an EngineConfig bool) on and off")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--memory", action="store_true",
+                    help="profile each TPC-H query over memory-catalog "
+                         "copies of its tables")
     args = ap.parse_args()
     for label in args.query or ():
         if label not in QUERIES and not label.startswith("ds:"):
             ap.error(f"unknown query {label}")
+        if args.memory and label.startswith("ds:"):
+            ap.error("--memory copies TPC-H tables only")
+    if args.memory and args.ab:
+        ap.error("--memory profiles; it does not take --ab")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -170,6 +205,8 @@ def main() -> int:
     done = Completed()
     runner.event_bus.register(done)
     for label, sql in queries:
+        if args.memory:
+            to_memory(runner, sql, card)
         runner.execute(sql)                             # cold
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -188,7 +225,8 @@ def main() -> int:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         ops = _operator_walls(done.last)
         print(json.dumps({
-            "query": label, "scale": args.scale, "wall_s": wall,
+            "query": label, "scale": args.scale,
+            "catalog": "memory" if args.memory else "tpch", "wall_s": wall,
             "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
             "device_events": len(device_events),
             "top_device": top, "operators_wall_s": ops, "card": card}),
