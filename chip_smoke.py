@@ -95,7 +95,25 @@ Phases (any failure exits non-zero; nothing is caught):
    high, copying no column to the host (``analyze``); and a CTAS into
    the blackhole sink (``blackhole``).  Its kept inputs go to phase 5;
    it runs before phase 5's checks;
-5. each kernel at the inputs phases 4, 6 and 7 kept for each path, held
+8. the rest of the statements and the sketches, on phase 3's runner at
+   ``--scale``: SHOW CATALOGS, ``information_schema.columns`` of tpch
+   (the generator's 61 columns) and ``system.nodes``, their batches on
+   cuda (``catalogs``); a view of Q1 and an EXECUTE of Q3 prepared with
+   its segment and dates as parameters, as phase 4 runs its queries
+   (``view_q1``, ``exec_q3`` paths against phase 3's oracles, each with
+   Q1's or Q3's own launches; DESCRIBE OUTPUT gives Q3's four columns);
+   EXPLAIN ANALYZE of Q1 and Q3, every operator's rows those of a plain
+   run's task stats in the same call, the output operator's the
+   oracle's row count, the plain run's launches (``explain_analyze``
+   lines, kept inputs as ``ea_q1``, ``ea_q3``); approx_distinct and
+   approx_percentile over orders by priority and approx_distinct over
+   lineitem, one feed thread, within 3 standard errors of numpy's exact
+   distinct counts and the KLL rank bound, the same bits on two runs
+   and on the CPU runner, xxh64 built with g++ (``sketch``,
+   ``sketch_check``); GRANT/REVOKE under GrantAwareAccessControl and
+   CALL system.runtime.kill_query (``access``).  Its kept inputs go to
+   phase 5; it runs before phase 5's checks;
+5. each kernel at the inputs phases 4, 6, 7 and 8 kept for each path, held
    against its plain version and timed as in phase 2 (``segment_sums``,
    ``probe_insert`` and ``probe_lookup`` lines with a ``path``, and under
    ``by_path`` in the kernels line); a path that launched a kernel and
@@ -2458,6 +2476,301 @@ def memory_phase(runner, scale: float, card: str, want: dict, facts: dict,
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: the rest of the single-node statements, and the sketches
+# --------------------------------------------------------------------------
+
+# Q3 with its segment and its two dates as parameters, and the EXECUTE
+# that binds the spec's validation values
+Q3_PREPARED = (Q3.replace("'BUILDING'", "?")
+               .replace("date '1995-03-15'", "?"))
+EXEC_Q3 = ("execute q3 using 'BUILDING', date '1995-03-15', "
+           "date '1995-03-15'")
+Q3_OUTPUT = [("l_orderkey", "bigint"), ("revenue", "double"),
+             ("o_orderdate", "date"), ("o_shippriority", "bigint")]
+SKETCH_GROUPED = ("select o_orderpriority, approx_distinct(o_custkey), "
+                  "approx_percentile(o_totalprice, 0.5) from orders "
+                  "group by 1")
+SKETCH_GLOBAL = "select approx_distinct(l_orderkey) from lineitem"
+# HLL's standard error with 2^11 registers (sketch.py), and the rank
+# bound of a KLL quantile (tests/test_kll.py)
+HLL_STD_ERR = 0.023
+KLL_RANK_BOUND = 0.02
+CATALOGS = ["blackhole", "information_schema", "memory", "system", "tpcds",
+            "tpch"]
+
+
+def analyze_ops(lines):
+    """[(operator, input rows, output rows)] of an EXPLAIN ANALYZE text's
+    operator table."""
+    import re
+
+    out = []
+    for line in lines:
+        m = re.match(r"(\S+)\s+(\d+)\s+(\d+)\s+[\d.]+\s+[\d.]+\s+[\d.]+"
+                     r"\s+\d+\s+\d+\s+\d+$", line)
+        if m:
+            out.append((m.group(1), int(m.group(2)), int(m.group(3))))
+    return out
+
+
+def task_ops(runner):
+    return [(s.operator, s.input_rows, s.output_rows)
+            for s in runner._last_task.operator_stats]
+
+
+def sketch_oracle(scale: float) -> dict:
+    """From the generator's orders columns: per priority, the exact
+    distinct count of o_custkey and the sorted o_totalprice."""
+    import numpy as np
+
+    cols = table_columns(scale, "orders", ["o_orderpriority", "o_custkey",
+                                           "o_totalprice"])
+    out = {}
+    for prio in sorted(set(cols["o_orderpriority"].tolist())):
+        mask = cols["o_orderpriority"] == prio
+        out[prio] = (len(np.unique(cols["o_custkey"][mask])),
+                     np.sort(cols["o_totalprice"][mask]))
+    return out
+
+
+def check_sketches(rows, oracle: dict, orderkey_ndv: int, label: str):
+    """Each estimate within 3 standard errors of the exact count, each
+    median's rank error under the KLL bound: the worst of each."""
+    import numpy as np
+
+    grouped, (global_row,) = rows
+    if sorted(r[0] for r in grouped) != sorted(oracle):
+        raise AssertionError(f"{label}: groups {grouped}")
+    worst_hll, worst_rank = 0.0, 0.0
+    for prio, ad, p50 in grouped:
+        exact, prices = oracle[prio]
+        worst_hll = max(worst_hll, abs(ad - exact) / exact)
+        lo = np.searchsorted(prices, p50, "left") / len(prices)
+        hi = np.searchsorted(prices, p50, "right") / len(prices)
+        worst_rank = max(worst_rank, max(lo - 0.5, 0.5 - hi, 0.0))
+    worst_hll = max(worst_hll,
+                    abs(global_row[0] - orderkey_ndv) / orderkey_ndv)
+    if worst_hll > 3 * HLL_STD_ERR or worst_rank >= KLL_RANK_BOUND:
+        raise AssertionError(f"{label}: HLL error {worst_hll}, KLL rank "
+                             f"error {worst_rank}")
+    return worst_hll, worst_rank
+
+
+def statements_phase(runner, scale: float, card: str, want: dict,
+                     facts: dict, tpch_warm: dict, q_launches: dict,
+                     modules) -> tuple:
+    """Phase 8 on phase 3's runner: the system and information_schema
+    catalogs, a view of Q1 and an EXECUTE of a prepared Q3 (``run_paths``
+    against phase 3's oracles, as ``view_q1`` and ``exec_q3``), EXPLAIN
+    ANALYZE of Q1 and Q3 against a plain run's task stats (``ea_q1``,
+    ``ea_q3``), the sketch aggregates at ``scale`` against numpy's exact
+    counts and the CPU runner's bits, and GRANT/REVOKE and kill_query.
+    Returns the launches and kept inputs by path."""
+    import torch
+
+    from presto_tpu_torch import events as ev
+    from presto_tpu_torch import native
+    from presto_tpu_torch.connectors import system as SY
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.localrunner import LocalQueryRunner
+    from presto_tpu_torch.session import GrantAwareAccessControl, Session
+
+    S, B2, H, J, G = modules
+
+    # 1. the catalogs, their batches built on the card
+    devices = []
+    real_iter = SY._RowsPageSource.__iter__
+
+    def spy_iter(self):
+        for b in real_iter(self):
+            devices.append(b.device)
+            yield b
+
+    SY._RowsPageSource.__iter__ = spy_iter
+    try:
+        gen = TpchConnector(scale=scale)
+        n_columns = sum(len(gen.table_schema(gen.get_table(t)).columns)
+                        for t in gen.list_tables())
+        res_cat, wall_cat = timed(runner, "show catalogs")
+        res_cols, wall_cols = timed(
+            runner, "select count(*) from information_schema.columns "
+                    "where table_catalog = 'tpch'")
+        res_nodes, wall_nodes = timed(runner, "select * from system.nodes")
+    finally:
+        SY._RowsPageSource.__iter__ = real_iter
+    if [r[0] for r in res_cat.rows] != CATALOGS:
+        raise AssertionError(f"SHOW CATALOGS: {res_cat.rows}")
+    if res_cols.rows != [(n_columns,)] or n_columns != 61:
+        raise AssertionError(f"information_schema.columns: "
+                             f"{res_cols.rows}, generator {n_columns}")
+    if res_nodes.rows != [("local", "local://", "dev", True, "ACTIVE")]:
+        raise AssertionError(f"system.nodes: {res_nodes.rows}")
+    if len(devices) != 2 or any(d.type != "cuda" for d in devices):
+        raise AssertionError(f"catalog batches on {devices}")
+    print("catalogs " + json.dumps({
+        "show_catalogs_s": wall_cat, "catalogs": len(res_cat.rows),
+        "columns_s": wall_cols, "tpch_columns": n_columns,
+        "nodes_s": wall_nodes, "batch_devices": sorted(
+            {str(d) for d in devices}), "card": card}), flush=True)
+
+    # 2. and 3. a view of Q1; an EXECUTE of Q3 prepared with parameters
+    runner.execute("create view tpch.v_q1 as " + Q1)
+    runner.execute("prepare q3 from " + Q3_PREPARED)
+    described = runner.execute("describe output q3").rows
+    if described != Q3_OUTPUT:
+        raise AssertionError(f"DESCRIBE OUTPUT q3: {described}")
+    spy = DeviceSpy()
+    spy.wrap(G, "direct_grouped_aggregate", "q1")
+    spy.wrap(H, "pages_hash_probe", "join")
+    spy.wrap(J, "probe_counts", "join")
+
+    def compare(label, rows):
+        rows_match(rows, want[{"view_q1": "q1", "exec_q3": "q3"}[label]],
+                   label)
+
+    def scanned(sql):
+        return scanned_rows(runner, scale, Q3 if sql == EXEC_Q3 else sql)
+
+    launches, kept = run_paths(
+        runner, {"view_q1": "select * from v_q1", "exec_q3": EXEC_Q3},
+        card, scale, modules, compare, spy,
+        {"view_q1": ["q1"], "exec_q3": ["join"]}, {"view_q1": ("b1",)},
+        scanned)
+    spy.restore()
+    runner.execute("drop view v_q1")
+    runner.execute("deallocate prepare q3")
+    for label, q in (("view_q1", "q1"), ("exec_q3", "q3")):
+        if launches[label] != q_launches[q]:
+            raise AssertionError(f"{label} launched {launches[label]}, "
+                                 f"{q} {q_launches[q]}")
+
+    # 4. EXPLAIN ANALYZE of Q1 and Q3 against a plain run's task stats
+    keep = PathInputs()
+    for label, sql in (("ea_q1", Q1), ("ea_q3", Q3)):
+        q = label[3:]
+        counts = []
+        for text in (sql, "explain analyze " + sql):
+            S.LAUNCHES.reset()
+            B2.INSERT_LAUNCHES.reset()
+            B2.LOOKUP_LAUNCHES.reset()
+            res, wall = timed(runner, text)
+            counts.append({"b1": S.LAUNCHES.count,
+                           "insert": B2.INSERT_LAUNCHES.count,
+                           "lookup": B2.LOOKUP_LAUNCHES.count})
+            if text == sql:
+                rows_match(res.rows, want[q], label)
+                plain, plain_wall = sorted(task_ops(runner)), wall
+        launches[label] = counts[1]
+        ops = analyze_ops([r[0] for r in res.rows])
+        outputs = [o for o in ops if o[0].endswith("OutputCollector")]
+        if sorted(ops) != plain or sorted(task_ops(runner)) != plain:
+            raise AssertionError(f"{label}: operators {ops}, plain {plain}")
+        if len(outputs) != 1 or outputs[0][1] != len(want[q]):
+            raise AssertionError(f"{label}: output {outputs}")
+        if counts[1] != counts[0]:
+            raise AssertionError(f"{label} launched {counts[1]}, plain "
+                                 f"{counts[0]}")
+        # one more run that no wall reads keeps the kernels' inputs
+        keep.wrap(G, "direct_segment_sums", "b1")
+        keep.wrap(B2, "insert_claims", "insert")
+        keep.wrap(B2, "insert_claims", "insert_loaded", insert_load)
+        keep.wrap(B2, "lookup_ranges", "lookup")
+        runner.execute("explain analyze " + sql)
+        keep.restore()
+        kept[label] = keep.take()
+        print("explain_analyze " + json.dumps({
+            "query": q, "wall_s": wall, "plain_s": plain_wall,
+            "plain_warm_s": tpch_warm[q], "operators": len(ops),
+            "output_rows": outputs[0][1], "launches": counts[1],
+            "card": card}), flush=True)
+
+    # 5. the sketches: numpy's exact counts, the same bits on two runs,
+    # and the CPU runner's bits; one feed thread on both sides, so KLL
+    # compacts in the same order
+    if not native.available():
+        raise AssertionError("xxh64 did not build with g++ on this host")
+    oracle = sketch_oracle(scale)
+    cpu = LocalQueryRunner.tpch(scale=scale, device="cpu")
+    sketch_sql = {"grouped": SKETCH_GROUPED, "global": SKETCH_GLOBAL}
+    scanned = {"grouped": int(1_500_000 * scale), "global": facts["rows"]}
+    walls, results = {}, []
+    for r in (runner, cpu):
+        r.execute("set session task_concurrency = 1")
+    for _ in range(2):
+        rows = []
+        for key, sql in sketch_sql.items():
+            res, wall = timed(runner, sql)
+            walls.setdefault(key, []).append(wall)
+            rows.append(sorted(res.rows))
+        results.append(rows)
+    t0 = time.perf_counter()
+    cpu_rows = [sorted(cpu.execute(sql).rows) for sql in sketch_sql.values()]
+    cpu_s = time.perf_counter() - t0
+    runner.execute("reset session task_concurrency")
+    if results[1] != results[0] or cpu_rows != results[0]:
+        raise AssertionError(f"sketch bits: {results}, CPU {cpu_rows}")
+    worst_hll, worst_rank = check_sketches(results[0], oracle,
+                                           facts["orderkey_ndv"], "sketch")
+    for i, key in enumerate(sketch_sql):
+        print("sketch " + json.dumps({
+            "query": key, "rows": scanned[key],
+            "result_rows": len(results[0][i]),
+            "cold_s": walls[key][0], "warm_s": walls[key][1],
+            "warm_rows_per_s": scanned[key] / walls[key][1],
+            "xxh64_native": native.available(), "card": card}), flush=True)
+    print("sketch_check " + json.dumps({
+        "hll_worst_rel_err": worst_hll, "hll_limit": 3 * HLL_STD_ERR,
+        "kll_worst_rank_err": worst_rank, "kll_limit": KLL_RANK_BOUND,
+        "cpu_equal": True, "cpu_s": cpu_s, "card": card}), flush=True)
+    del cpu
+
+    # 6. GRANT/REVOKE under a GrantAwareAccessControl runner; kill_query
+    ac = GrantAwareAccessControl()
+    admin = LocalQueryRunner.tpch(scale=scale, access_control=ac,
+                                  session=Session(user="admin"))
+    bob = LocalQueryRunner(admin.registry, "tpch", admin.config,
+                           session=Session(user="bob"), access_control=ac)
+    admin.execute("create table memory.sec as select * from tpch.nation")
+    outcomes = []
+    for who, sql in ((bob, "select count(*) from memory.sec"),
+                     (admin, "grant select on memory.sec to bob"),
+                     (bob, "select count(*) from memory.sec"),
+                     (admin, "revoke select on memory.sec from bob"),
+                     (bob, "select count(*) from memory.sec")):
+        try:
+            outcomes.append(who.execute(sql).rows)
+        except PermissionError:
+            outcomes.append("denied")
+    if outcomes[::2] != ["denied", [(25,)], "denied"]:
+        raise AssertionError(f"GRANT/REVOKE: {outcomes}")
+
+    class Killed(ev.EventListener):
+        def __init__(self):
+            self.events = []
+
+        def query_killed(self, event):
+            self.events.append(event)
+
+    rec = Killed()
+    runner.event_bus.register(rec)
+    res = runner.execute("call system.runtime.kill_query('local-1', "
+                         "'phase 8')")
+    runner.event_bus.listeners.remove(rec)
+    if (res.rows != [("killed",)] or len(rec.events) != 1
+            or rec.events[0].error_name != "ADMINISTRATIVELY_KILLED"
+            or rec.events[0].query_id != "local-1"):
+        raise AssertionError(f"kill_query: {res.rows}, {rec.events}")
+    print("access " + json.dumps({
+        "grant_revoke": [o if o == "denied" else o[0][0]
+                         for o in outcomes[::2]],
+        "killed": rec.events[0].query_id,
+        "error_name": rec.events[0].error_name,
+        "message": rec.events[0].message, "card": card}), flush=True)
+    torch.cuda.synchronize()
+    return launches, kept
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -2669,6 +2982,18 @@ def main() -> int:
         (S, B2, H, J, G))
     semi_launches.update(mem_launches)
     semi_inputs.update(mem_inputs)
+
+    # -- phase 8: the rest of the statements and the sketches, on phase
+    # 3's runner at --scale; each query path cold with the counts set to
+    # 0 just before it and read just after; its kept inputs join phase
+    # 5's checks
+    stmt_launches, stmt_inputs = statements_phase(
+        runner, args.scale, card, want, facts,
+        {label: min(w[1:]) for label, w in walls.items()},
+        {"q1": {"b1": b1_launches, "insert": 0, "lookup": 0},
+         "q3": dict(b2_launches["q3"], b1=0)}, (S, B2, H, J, G))
+    semi_launches.update(stmt_launches)
+    semi_inputs.update(stmt_inputs)
 
     # -- phase 5: each kernel at the inputs phase 4 kept on each path,
     # against its plain version, with its times

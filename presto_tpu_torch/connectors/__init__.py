@@ -1,5 +1,5 @@
 """Connectors behind the SPI in :mod:`presto_tpu_torch.connectors.api`
-(this slice ships the tpch generator)."""
+(tpch, tpcds, memory, blackhole, system, information_schema)."""
 
 from presto_tpu_torch.connectors.api import (  # noqa: F401
     ColumnMetadata, Connector, ConnectorRegistry, PageSource, Split,

@@ -7,6 +7,7 @@ metrics shipping, query logs).  Listeners receive typed dataclasses;
 exceptions in listeners are swallowed (an observer must never fail a
 query), matching the reference's isolation stance.  The distributed
 tier's fault-tolerance events come with that tier (ROADMAP A13).
+``QueryKilledEvent`` is fired by ``CALL system.runtime.kill_query``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,28 @@ class QueryCompletedEvent:
         return self.end_time - self.create_time
 
 
+#: (errorName, errorType, errorCode) of an administrative kill
+#: (StandardErrorCode layout: USER_ERROR codes are based at 0x0000_0000),
+#: as the JAX package's coordinator defines it
+ADMINISTRATIVELY_KILLED = ("ADMINISTRATIVELY_KILLED", "USER_ERROR",
+                           0x0000_0005)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryKilledEvent:
+    """An operator failed a query via CALL system.runtime.kill_query:
+    ``reason`` names the path ('kill_query'), and the error name is the
+    one the client sees (ADMINISTRATIVELY_KILLED)."""
+
+    query_id: str
+    trace_token: str
+    user: str
+    reason: str
+    error_name: str
+    message: str
+    time: float
+
+
 class EventListener:
     """Implement any subset (EventListener SPI surface)."""
 
@@ -55,6 +78,9 @@ class EventListener:
         pass
 
     def query_completed(self, event: QueryCompletedEvent) -> None:
+        pass
+
+    def query_killed(self, event: QueryKilledEvent) -> None:
         pass
 
 
@@ -77,6 +103,9 @@ class EventBus:
 
     def query_completed(self, event: QueryCompletedEvent) -> None:
         self._fire("query_completed", event)
+
+    def query_killed(self, event: QueryKilledEvent) -> None:
+        self._fire("query_killed", event)
 
 
 def now() -> float:

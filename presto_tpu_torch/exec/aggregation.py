@@ -20,8 +20,16 @@ them (``presto_tpu/exec/aggregation.py:253-505``):
   input, for everything else.
 
 Streaming aggregation over key-clustered scans is exec/streamagg.py.
-Spilling and the host-side collect/sketch aggregates are ROADMAP A8 and
-A5: a plan that needs them raises ``NotImplementedError``.
+
+The sketch aggregates (approx_distinct's HyperLogLog, approx_percentile's
+KLL; ``sketch.py``) and the count/sum/min/max beside them run on the host
+in ``host_aggregate``, as the JAX package runs them: each batch is copied
+to the host once (``b.compact().to_numpy()``, one read of the card a
+batch) and folded in a Python loop over its rows; the result batch goes
+back to the operator's device.  Spilling (ROADMAP A8) and the collect
+aggregates (array_agg, map_agg, min_by/max_by, corr/covar/regr,
+learn_*: their state is an array column, ROADMAP A6) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,15 +59,110 @@ class AggChannel:
     out_type: T.Type
 
 
-_DEVICE_PRIMS = ("sum", "count", "min", "max")
+_HOST_PRIMS = ("hll", "hll_merge", "kll", "kll_merge")
 
 
 def _check_prims(aggs: Sequence[AggChannel]) -> None:
     for a in aggs:
-        if a.prim not in _DEVICE_PRIMS:
+        if a.prim in ("collect", "collect_merge"):
             raise NotImplementedError(
-                f"aggregate primitive {a.prim}: ROADMAP A5 ports the "
-                "host-side collect/sketch aggregates")
+                f"aggregate primitive {a.prim}: ROADMAP A6 ports the "
+                "collect aggregates (their state is an array column)")
+
+
+def _has_host_prims(aggs: Sequence[AggChannel]) -> bool:
+    """True when a sketch aggregate needs the host path."""
+    return any(a.prim in _HOST_PRIMS for a in aggs)
+
+
+def host_aggregate(batches: List[Batch], group_channels: Sequence[int],
+                   aggs: Sequence[AggChannel],
+                   global_row: bool) -> Optional[Batch]:
+    """Host-side aggregation used when a sketch aggregate is present
+    (AccumulatorCompiler's object-state accumulators in the reference):
+    device reductions cannot build a HyperLogLog or a KLL sketch.  Groups
+    come out in the order of their first row.  Returns a host batch.
+
+    At the FINAL step the ``*_merge`` prims read the partial step's
+    serialized sketches, never raw values (the prim says which step this
+    is: an input of the sketch's own varbinary type is ambiguous)."""
+    from presto_tpu_torch.batch import column_from_pylist, concat_batches
+    from presto_tpu_torch.sketch import HyperLogLog, KllSketch
+
+    live = [b.compact().to_numpy() for b in batches if b.num_rows > 0]
+    if not live:
+        if not global_row:
+            return None
+        data = None
+        n = 0
+    else:
+        data = concat_batches(live) if len(live) > 1 else live[0]
+        n = data.num_rows
+    key_lists = [data.columns[c].to_pylist(n) for c in group_channels] \
+        if data is not None else [[] for _ in group_channels]
+    group_ids: dict = {}
+    order: List[tuple] = []
+    gids = np.zeros(n, np.int64)
+    for i in range(n):
+        k = tuple(kl[i] for kl in key_lists)
+        gid = group_ids.get(k)
+        if gid is None:
+            gid = group_ids[k] = len(order)
+            order.append(k)
+        gids[i] = gid
+    if global_row and not order:
+        order.append(())
+    ng = len(order)
+    cols: List[Column] = []
+    for j, c in enumerate(group_channels):
+        src = None if data is None else data.columns[c]
+        vals = [k[j] for k in order]
+        cols.append(column_from_pylist(src.type, vals))
+    for a in aggs:
+        in_list = None
+        if a.channel is not None and data is not None:
+            in_list = data.columns[a.channel].to_pylist(n)
+        if a.prim == "count":
+            out = [0] * ng
+            for i in range(n):
+                if in_list is None or in_list[i] is not None:
+                    out[int(gids[i])] += 1
+            cols.append(column_from_pylist(a.out_type, out))
+            continue
+        if a.prim in ("hll", "hll_merge", "kll", "kll_merge"):
+            sketch = HyperLogLog if a.prim.startswith("hll") else KllSketch
+            merge = a.prim.endswith("_merge")
+            sketches = [sketch() for _ in range(ng)]
+            for i in range(n):
+                v = in_list[i]
+                if v is None:
+                    continue
+                g = int(gids[i])
+                if merge:
+                    sketches[g].merge(sketch.deserialize(v))
+                else:
+                    sketches[g].add_value(v)
+            cols.append(column_from_pylist(
+                a.out_type, [s.serialize() for s in sketches]))
+            continue
+        # sum / min / max over non-null values
+        out2: List[Optional[object]] = [None] * ng
+        for i in range(n):
+            v = in_list[i] if in_list is not None else None
+            if v is None:
+                continue
+            g = int(gids[i])
+            cur = out2[g]
+            if cur is None:
+                out2[g] = v
+            elif a.prim == "sum":
+                out2[g] = cur + v
+            elif a.prim == "min":
+                out2[g] = min(cur, v)
+            elif a.prim == "max":
+                out2[g] = max(cur, v)
+        cols.append(column_from_pylist(a.out_type, out2))
+    return Batch(tuple(cols), ng)
 
 
 def _minmax_dict_input(a: AggChannel, col: Column):
@@ -164,8 +267,8 @@ class HashAggregationOperator(Operator):
         resident state would be interning codes), keys not served by the
         bounded-domain direct tier (faster where it applies), and grouping
         actually present."""
-        if not self.ctx.config.hash_groupby_enabled or \
-                not self.group_channels:
+        if (not self.ctx.config.hash_groupby_enabled
+                or not self.group_channels or _has_host_prims(self.aggs)):
             return False
         for a in self.aggs:
             if (a.prim in ("min", "max") and a.channel is not None
@@ -323,6 +426,11 @@ class HashAggregationOperator(Operator):
         return doms
 
     def _compute_batches(self, batches: List[Batch]) -> Optional[Batch]:
+        if _has_host_prims(self.aggs):
+            out = host_aggregate(batches, self.group_channels, self.aggs,
+                                 global_row=False)
+            return (None if out is None
+                    else out.to_device(batches[0].device))
         data = device_concat(batches, self.ctx.config.min_batch_capacity)
         if data is None:
             return None  # grouped aggregation of zero rows -> zero rows
@@ -445,6 +553,12 @@ class GlobalAggregationOperator(Operator):
         super().finish()
         from presto_tpu_torch.ops.groupby import global_aggregate
 
+        if _has_host_prims(self.aggs):
+            self._output = host_aggregate(
+                self._batches, [], self.aggs,
+                global_row=True).to_device(self.device)
+            self._batches = []
+            return
         data = device_concat(self._batches,
                              self.ctx.config.min_batch_capacity)
         self._batches = []

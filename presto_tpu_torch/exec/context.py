@@ -8,8 +8,8 @@ reservations roll up to the query root, which enforces a limit.
 
 Stats mirror the OperatorStats -> DriverStats -> TaskStats -> StageStats
 rollups (SURVEY §5.1): the Driver records per-operator wall time and
-row/batch counts around every get_output/add_input call, and the runner's
-QueryCompletedEvent carries them.
+row/batch counts around every get_output/add_input call; the runner's
+QueryCompletedEvent carries them and EXPLAIN ANALYZE renders them.
 """
 
 from __future__ import annotations
@@ -149,6 +149,31 @@ class StageStats:
 
     def as_dict(self) -> Dict:
         return dataclasses.asdict(self)
+
+
+def hot_operator_lines(ops, top_n: int = 5) -> List[str]:
+    """The EXPLAIN ANALYZE "hot operators" footer: the top-N operators
+    by exclusive wall (``wall_ns`` already includes finish wall for
+    aggregated dicts), with the compile-vs-execute split per operator.
+    ``ops`` are operator-stats dicts.  Eager torch compiles nothing, so
+    an operator's ``jit_compile_ns`` is absent and its compile share 0;
+    the text is the JAX package's, so the two surfaces stay diffable."""
+    ranked = sorted((o for o in ops if o.get("wall_ns", 0) > 0),
+                    key=lambda o: o.get("wall_ns", 0), reverse=True)
+    if not ranked:
+        return []
+    lines = [f"hot operators (top {min(top_n, len(ranked))} "
+             f"by exclusive wall):"]
+    for o in ranked[:top_n]:
+        wall = o.get("wall_ns", 0)
+        compile_ns = min(o.get("jit_compile_ns", 0), wall)
+        lines.append(
+            f"  {o.get('operator', '?'):<36} "
+            f"{wall / 1e6:>9.1f} ms wall "
+            f"({compile_ns / 1e6:.1f} compile / "
+            f"{(wall - compile_ns) / 1e6:.1f} execute), "
+            f"{o.get('output_rows', 0)} rows out")
+    return lines
 
 
 class QueryContext:

@@ -515,9 +515,6 @@ def _url_extract_parameter(s: str, name: str):
 
 
 
-def _sketches_not_ported(_payload):
-    raise NotImplementedError("approx_distinct: ROADMAP A5 ports the sketches")
-
 
 _STRING_FNS = {
     "like": (_like, T.BOOLEAN),
@@ -587,7 +584,9 @@ _STRING_FNS = {
     "url_extract_port": (_url_part("port"), T.BIGINT),
     "url_extract_parameter": (_url_extract_parameter, T.VARCHAR),
     # approx_distinct finalize: HLL sketch payload -> estimate
-    "$hll_cardinality": (lambda s: _sketches_not_ported(s), T.BIGINT),
+    "$hll_cardinality": (lambda s: __import__(
+        "presto_tpu_torch.sketch", fromlist=["hll_cardinality"])
+        .hll_cardinality(s), T.BIGINT),
 }
 
 
@@ -1258,8 +1257,24 @@ def resolve_array_percentile(arr: T.ArrayType, p: float) -> Scalar:
 def resolve_kll_percentile(result_type: T.Type, p: float) -> Scalar:
     """approx_percentile finalize: serialized KLL sketch -> quantile in
     the aggregate's result type."""
-    raise NotImplementedError(
-        "approx_percentile: ROADMAP A5 ports the sketches")
+    def impl(payload: str):
+        from presto_tpu_torch.sketch import KllSketch
+
+        v = KllSketch.deserialize(payload).quantile(p)
+        if v is None:
+            return None
+        if T.is_integral(result_type):
+            return int(round(v))
+        if isinstance(result_type, T.DecimalType):
+            import decimal
+
+            return decimal.Decimal(repr(float(v)))
+        return float(v)
+
+    s = Scalar("$kll_percentile", (T.VARBINARY,), result_type, "string",
+               impl)
+    s.re_key = ("kll_percentile", result_type, p)
+    return s
 
 
 def resolve_array_constructor(rt: T.ArrayType, k: int) -> Scalar:

@@ -11,12 +11,17 @@ in one process with hand-pumped drivers.  Same role here:
 
 The runner carries its device: ``cuda`` unless the caller names another
 (``device="cpu"``, as the tests do).  Its ``memory`` catalog keeps its
-tables on that device.  It runs queries and EXPLAIN; CREATE TABLE [AS],
-INSERT, DELETE, DROP TABLE, ALTER TABLE ... RENAME, ANALYZE and SHOW
-STATS; SHOW TABLES, SHOW COLUMNS/DESCRIBE and SHOW CREATE TABLE;
-SET/RESET/SHOW SESSION; USE; START TRANSACTION, COMMIT and ROLLBACK.
-Every other statement raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+tables on that device, and the ``system`` and ``information_schema``
+catalogs build their batches there.  It runs queries; EXPLAIN, EXPLAIN
+ANALYZE and EXPLAIN (TYPE IO | VALIDATE); CREATE TABLE [AS], INSERT,
+DELETE, DROP TABLE, ALTER TABLE ... RENAME, ANALYZE and SHOW STATS;
+CREATE [OR REPLACE] VIEW, DROP VIEW and SHOW CREATE VIEW; PREPARE,
+EXECUTE, DEALLOCATE and DESCRIBE INPUT/OUTPUT; SHOW CATALOGS, SCHEMAS,
+FUNCTIONS, TABLES, COLUMNS/DESCRIBE and CREATE TABLE; SET/RESET/SHOW
+SESSION; USE; START TRANSACTION, COMMIT and ROLLBACK; GRANT and REVOKE;
+and CALL system.runtime.kill_query.  EXPLAIN (TYPE DISTRIBUTED), which
+prints the distributed tier's fragments, raises ``NotImplementedError``
+naming ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from presto_tpu_torch.connectors.api import (
 )
 from presto_tpu_torch.exec.runner import execute_pipelines
 from presto_tpu_torch.session import (
-    AllowAllAccessControl, Session, TransactionManager,
+    AllowAllAccessControl, GrantStore, Session, TransactionManager,
 )
 from presto_tpu_torch.sql import tree as t
 from presto_tpu_torch.sql.optimizer import optimize
@@ -44,17 +49,8 @@ from presto_tpu_torch.sql.physical import PhysicalPlanner
 from presto_tpu_torch.sql.plan import TableScanNode, format_plan
 from presto_tpu_torch.sql.planner import Metadata, Planner
 
-# statements of the JAX package's runner that this package does not run
-# yet -> the ROADMAP item that ports them
-_NOT_PORTED = (
-    ((t.CreateView, t.DropView, t.ShowCreateView), "A4b (views)"),
-    ((t.Prepare, t.ExecutePrepared, t.Deallocate, t.DescribeInput,
-      t.DescribeOutput), "A4b (prepared statements)"),
-    ((t.ShowCatalogs, t.ShowSchemas, t.ShowFunctions),
-     "A4b (the system and information_schema catalogs)"),
-    ((t.Grant, t.Revoke), "A4b (GRANT/REVOKE)"),
-    ((t.CallProcedure,), "A4b (kill_query)"),
-)
+# ``nodes`` row of the single-process runner's system catalog
+_LOCAL_NODE = ("local", "local://", "dev", True, "ACTIVE")
 
 
 @dataclasses.dataclass
@@ -101,17 +97,30 @@ def _like(value: str, pattern: Optional[str]) -> bool:
 class LocalQueryRunner:
     def __init__(self, registry: ConnectorRegistry, default_catalog: str,
                  config: EngineConfig = DEFAULT, session=None,
-                 access_control=None, device=None):
+                 access_control=None, session_property_manager=None,
+                 device=None):
         self.registry = registry
         self.metadata = Metadata(registry, default_catalog)
         self.config = config
         self.device = resolve_device(device)
         self.session = session or Session(catalog=default_catalog)
+        if session_property_manager is not None:
+            # rule-based session defaults (SET SESSION still overrides)
+            session_property_manager.apply(self.session)
         self.access_control = access_control or AllowAllAccessControl()
+        self.grants = GrantStore()
+        if hasattr(self.access_control, "grants") and \
+                self.access_control.grants is None:
+            self.access_control.grants = self.grants
         self.transaction_manager = TransactionManager()
         self.event_bus = ev.EventBus()
         self._last_task = None
         self._query_seq = 0
+        # kill_query's view of the runner: ids it has executed (all
+        # terminal: execution is synchronous) and the statement on the
+        # caller's thread
+        self._query_ids: set = set()
+        self._current_query_id: Optional[str] = None
 
     @classmethod
     def tpch(cls, scale: float = 0.01, config: EngineConfig = DEFAULT,
@@ -119,6 +128,9 @@ class LocalQueryRunner:
              device=None) -> "LocalQueryRunner":
         from presto_tpu_torch.connectors.memory import (
             BlackHoleConnector, MemoryConnector,
+        )
+        from presto_tpu_torch.connectors.system import (
+            InformationSchemaConnector, SystemConnector,
         )
         from presto_tpu_torch.connectors.tpcds import TpcdsConnector
         from presto_tpu_torch.connectors.tpch import TpchConnector
@@ -129,6 +141,10 @@ class LocalQueryRunner:
         reg.register("tpcds", TpcdsConnector(scale=scale))
         reg.register("memory", MemoryConnector(device))
         reg.register("blackhole", BlackHoleConnector())
+        reg.register("system", SystemConnector(
+            device, nodes_fn=lambda: [_LOCAL_NODE]))
+        reg.register("information_schema",
+                     InformationSchemaConnector(reg, device))
         return cls(reg, "tpch", config, session=session,
                    access_control=access_control, device=device)
 
@@ -136,6 +152,8 @@ class LocalQueryRunner:
     def execute(self, sql: str) -> QueryResult:
         self._query_seq += 1
         qid = f"local-{self._query_seq}"
+        self._current_query_id = qid
+        self._query_ids.add(qid)
         trace = f"tt-{uuid.uuid4().hex[:12]}"
         created = ev.now()
         self.event_bus.query_created(ev.QueryCreatedEvent(
@@ -170,22 +188,28 @@ class LocalQueryRunner:
         return result
 
     def _execute_statement(self, stmt: t.Node) -> QueryResult:
+        if isinstance(stmt, t.CallProcedure):
+            return self._run_kill_query(stmt)
         if isinstance(stmt, t.Explain):
-            if stmt.analyze or stmt.plan_type != "logical":
+            if stmt.analyze:
+                text = self.explain_analyze_text(stmt.statement)
+            elif stmt.plan_type == "distributed":
                 raise NotImplementedError(
-                    "EXPLAIN ANALYZE and the typed EXPLAIN variants are not "
-                    "in presto_tpu_torch yet: ROADMAP A4b")
-            text = self.explain_text(stmt.statement)
+                    "EXPLAIN (TYPE DISTRIBUTED) prints the distributed "
+                    "tier's fragments: ROADMAP A13")
+            elif stmt.plan_type == "validate":
+                self._validate(stmt.statement)
+                return QueryResult(["Valid"], [T.BOOLEAN], [(True,)])
+            elif stmt.plan_type == "io":
+                return self._explain_io(stmt.statement)
+            else:
+                text = self.explain_text(stmt.statement)
             return QueryResult(["Query Plan"], [T.VARCHAR],
                                [(line,) for line in text.splitlines()])
-        for classes, item in _NOT_PORTED:
-            if isinstance(stmt, classes):
-                raise NotImplementedError(
-                    f"{type(stmt).__name__} statements are not in "
-                    f"presto_tpu_torch yet: ROADMAP {item}")
         if isinstance(stmt, t.ShowTables):
             cat = stmt.catalog or self.metadata.default_catalog
-            names = self.registry.get(cat).list_tables()
+            names = set(self.registry.get(cat).list_tables())
+            names.update(n for c, n in self.registry.views if c == cat)
             return QueryResult(["Table"], [T.VARCHAR],
                                [(n,) for n in sorted(names)
                                 if _like(n, stmt.like)])
@@ -241,9 +265,52 @@ class LocalQueryRunner:
             self.access_control.check_can_rename_table(
                 self.session.user, catalog, name)
             conn.rename_table(name, new_name)
+            self.grants.rename_table(catalog, name, new_name)
             self.access_control.notify_table_renamed(catalog, name,
                                                      new_name)
             return self._ok()
+        if isinstance(stmt, t.CreateView):
+            self.metadata.create_view(stmt.view, stmt.original_sql,
+                                      stmt.replace)
+            return self._ok()
+        if isinstance(stmt, t.DropView):
+            self.metadata.drop_view(stmt.view, stmt.if_exists)
+            return self._ok()
+        if isinstance(stmt, t.Prepare):
+            self.session.prepared[stmt.name] = stmt.statement
+            return self._ok()
+        if isinstance(stmt, t.ExecutePrepared):
+            prepared = self._get_prepared(stmt.name)
+            return self._execute_statement(
+                t.substitute_parameters(prepared, stmt.parameters))
+        if isinstance(stmt, t.Deallocate):
+            self._get_prepared(stmt.name)
+            del self.session.prepared[stmt.name]
+            return self._ok()
+        if isinstance(stmt, t.DescribeInput):
+            n = t.parameter_count(self._get_prepared(stmt.name))
+            return QueryResult(
+                ["Position", "Type"], [T.BIGINT, T.VARCHAR],
+                [(i, "unknown") for i in range(n)])
+        if isinstance(stmt, t.DescribeOutput):
+            return self._describe_output(self._get_prepared(stmt.name))
+        if isinstance(stmt, t.ShowCatalogs):
+            rows = [(c,) for c in self.registry.catalogs()
+                    if _like(c, stmt.like)]
+            return QueryResult(["Catalog"], [T.VARCHAR], rows)
+        if isinstance(stmt, t.ShowSchemas):
+            cat = stmt.catalog or self.metadata.default_catalog
+            self.registry.get(cat)  # raises for unknown catalog
+            rows = [(s,) for s in ("default", "information_schema")
+                    if _like(s, stmt.like)]
+            return QueryResult(["Schema"], [T.VARCHAR], rows)
+        if isinstance(stmt, t.ShowFunctions):
+            from presto_tpu_torch.expr.functions import function_names
+
+            rows = [(n, kind) for n, kind in function_names()
+                    if _like(n, stmt.like)]
+            return QueryResult(["Function", "Function Type"],
+                               [T.VARCHAR, T.VARCHAR], rows)
         if isinstance(stmt, t.ShowStats):
             return self._show_stats(stmt)
         if isinstance(stmt, t.ShowCreateTable):
@@ -253,6 +320,13 @@ class LocalQueryRunner:
                 for n in schema.column_names())
             ddl = f"CREATE TABLE {'.'.join(stmt.table)} (\n{cols}\n)"
             return QueryResult(["Create Table"], [T.VARCHAR], [(ddl,)])
+        if isinstance(stmt, t.ShowCreateView):
+            sql = self.metadata.get_view(stmt.view)
+            if sql is None:
+                raise ValueError(
+                    f"view {'.'.join(stmt.view)} does not exist")
+            ddl = f"CREATE VIEW {'.'.join(stmt.view)} AS\n{sql}"
+            return QueryResult(["Create View"], [T.VARCHAR], [(ddl,)])
         if isinstance(stmt, t.Use):
             self.registry.get(stmt.catalog)  # raises for unknown catalog
             self.session.catalog = stmt.catalog
@@ -281,6 +355,14 @@ class LocalQueryRunner:
             _, name, conn, _ = self.metadata.resolve_table(stmt.table)
             conn.collect_statistics(conn.get_table(name))
             return self._ok()
+        if isinstance(stmt, (t.Grant, t.Revoke)):
+            catalog, name = self.metadata.split_name(stmt.table)
+            self.access_control.check_can_grant(
+                self.session.user, catalog, name)
+            apply = (self.grants.grant if isinstance(stmt, t.Grant)
+                     else self.grants.revoke)
+            apply(stmt.grantee, catalog, name, stmt.privileges)
+            return self._ok()
         if not isinstance(stmt, (t.Query, t.SetOperation)):
             raise ValueError(f"unsupported statement {type(stmt).__name__}")
         return self._execute_query(stmt)
@@ -288,6 +370,59 @@ class LocalQueryRunner:
     @staticmethod
     def _ok() -> QueryResult:
         return QueryResult(["result"], [T.BOOLEAN], [(True,)])
+
+    def _get_prepared(self, name: str) -> t.Node:
+        stmt = self.session.prepared.get(name)
+        if stmt is None:
+            raise ValueError(f"prepared statement not found: {name}")
+        return stmt
+
+    def _describe_output(self, stmt: t.Node) -> QueryResult:
+        if isinstance(stmt, (t.Query, t.SetOperation)):
+            n_params = t.parameter_count(stmt)
+            bound = t.substitute_parameters(
+                stmt, tuple(t.NullLiteral() for _ in range(n_params)))
+            logical = Planner(self.metadata).plan(bound)
+            rows = [(cn, ty.display()) for cn, ty in logical.columns]
+        elif isinstance(stmt, (t.Insert, t.CreateTableAs, t.Delete)):
+            rows = [("rows", "bigint")]
+        else:
+            rows = [("result", "boolean")]
+        return QueryResult(["Column Name", "Type"], [T.VARCHAR, T.VARCHAR],
+                           rows)
+
+    def _run_kill_query(self, stmt: t.CallProcedure) -> QueryResult:
+        """CALL system.runtime.kill_query, the coordinator procedure's
+        single-process twin (KillQueryProcedure.java role): the JAX
+        package's name and argument checks and messages, and the
+        ADMINISTRATIVELY_KILLED shape in the fired ``QueryKilledEvent``.
+        Statements run synchronously on the caller's thread, so any valid
+        target is already terminal and the kill itself is the no-op the
+        coordinator applies to terminal queries."""
+        name = ".".join(stmt.name)
+        if name not in ("system.runtime.kill_query", "kill_query"):
+            raise ValueError(f"unknown procedure {name}")
+        if len(stmt.args) < 1 or not isinstance(stmt.args[0],
+                                                t.StringLiteral):
+            raise ValueError("kill_query(query_id) requires a string id")
+        qid = stmt.args[0].value
+        message = "Query killed via kill_query"
+        if len(stmt.args) > 1:
+            if not isinstance(stmt.args[1], t.StringLiteral):
+                raise ValueError(
+                    "kill_query(query_id, message) requires a string "
+                    "message")
+            if stmt.args[1].value:
+                message = f"Query killed via kill_query: " \
+                          f"{stmt.args[1].value}"
+        if qid == self._current_query_id:
+            raise ValueError("a query cannot kill itself")
+        if qid not in self._query_ids:
+            raise ValueError(f"no such query {qid!r}")
+        self.event_bus.query_killed(ev.QueryKilledEvent(
+            qid, "", self.session.user, "kill_query",
+            ev.ADMINISTRATIVELY_KILLED[0], message, ev.now()))
+        return QueryResult(["result"], [T.VARCHAR], [("killed",)])
 
     def _show_stats(self, stmt: t.ShowStats) -> QueryResult:
         _, name, conn, schema = self.metadata.resolve_table(stmt.table)
@@ -501,6 +636,112 @@ class LocalQueryRunner:
 
             annotator = cost_annotator(self.metadata, cfg)
         return format_plan(optimized, annotator=annotator)
+
+    def _validate(self, stmt: t.Node) -> None:
+        """EXPLAIN (TYPE VALIDATE): analyze/plan without executing.
+        Queries plan fully; DML validates its target and source; DDL
+        validates names/types; errors raise instead of reporting Valid."""
+        if isinstance(stmt, (t.Query, t.SetOperation)):
+            optimize(Planner(self.metadata).plan(stmt), self.metadata)
+            return
+        if isinstance(stmt, t.Insert):
+            catalog, name = self._resolve_write_target(stmt.table)
+            conn = self.registry.get(catalog)
+            conn.table_schema(conn.get_table(name))
+            source = (t.Query((t.SelectItem(t.Star()),), (stmt.source,))
+                      if isinstance(stmt.source, t.InlineValues)
+                      else stmt.source)
+            Planner(self.metadata).plan(source)
+            return
+        if isinstance(stmt, t.CreateTableAs):
+            Planner(self.metadata).plan(stmt.query)
+            return
+        if isinstance(stmt, t.CreateTable):
+            for _cn, ct in stmt.columns:
+                T.parse_type(ct)
+            return
+        if isinstance(stmt, (t.Delete, t.ShowStats, t.Analyze)):
+            self.metadata.resolve_table(stmt.table)
+            return
+        if isinstance(stmt, (t.DropTable, t.RenameTable)):
+            if not getattr(stmt, "if_exists", False):
+                self.metadata.resolve_table(stmt.table)
+            return
+        # session/metadata statements: parsing was the validation
+
+    def _explain_io(self, stmt: t.Node) -> QueryResult:
+        """EXPLAIN (TYPE IO): the tables the query reads (IoPlanPrinter
+        role), as one JSON row."""
+        import json
+
+        if not isinstance(stmt, (t.Query, t.SetOperation)):
+            raise ValueError("EXPLAIN requires a query")
+        optimized = optimize(Planner(self.metadata).plan(stmt),
+                             self.metadata)
+        tables = []
+
+        def walk(node):
+            if isinstance(node, TableScanNode):
+                entry = {"catalog": node.catalog, "table": node.table,
+                         "columns": list(node.column_names)}
+                if entry not in tables:
+                    tables.append(entry)
+            for s in node.sources:
+                walk(s)
+
+        walk(optimized)
+        return QueryResult(
+            ["Query Input"], [T.VARCHAR],
+            [(json.dumps({"inputTables": tables}),)])
+
+    def explain_analyze_text(self, stmt: t.Node) -> str:
+        """EXPLAIN ANALYZE: run the query on the runner's device, then
+        render the plan and the per-operator wall/row rollup the Driver
+        recorded (ExplainAnalyzeOperator.java:34 + planPrinter role).
+        The table is the JAX package's; its jit compile, dispatch and
+        pre-reduce columns read 0, since eager torch compiles nothing
+        and the port has no pre-reduce (ROADMAP S7)."""
+        import time
+
+        from presto_tpu_torch.exec.context import hot_operator_lines
+
+        if not isinstance(stmt, (t.Query, t.SetOperation)):
+            raise ValueError("EXPLAIN ANALYZE requires a query")
+        t0 = time.perf_counter()
+        optimized = optimize(Planner(self.metadata).plan(stmt),
+                             self.metadata)
+        self._check_scans(optimized)
+        phys = PhysicalPlanner(self.registry, self.device,
+                               self.config).plan(optimized)
+        task = execute_pipelines(phys.pipelines, self.config)
+        self._last_task = task   # the completion event reports its stats
+        execution_s = time.perf_counter() - t0
+        lines = [format_plan(optimized).rstrip(), "", "Operator stats:"]
+        header = (f"{'operator':<40} {'in rows':>10} {'out rows':>10} "
+                  f"{'wall ms':>9} {'finish ms':>9} {'compile ms':>10} "
+                  f"{'jit disp':>8} {'jit comp':>8} {'prereduce':>9}")
+        lines += [header, "-" * len(header)]
+        for s in task.operator_stats:
+            lines.append(
+                f"{s.operator:<40} {s.input_rows:>10} {s.output_rows:>10} "
+                f"{s.wall_ns / 1e6:>9.1f} {s.finish_wall_ns / 1e6:>9.1f} "
+                f"{0.0:>10.1f} {0:>8} {0:>8} {0:>9}")
+        lines.extend(hot_operator_lines([
+            dict(s.as_dict(), wall_ns=s.wall_ns + s.finish_wall_ns)
+            for s in task.operator_stats]))
+        lines.append(
+            f"peak memory: {task.memory.peak / (1 << 20):.1f} MiB; "
+            f"jit dispatches: 0, compiles: 0 (0.0 ms compile); "
+            f"prereduce rows: 0")
+        # the single-process runner executes synchronously: queued is 0
+        lines.append(f"serving: queued 0.000 s, "
+                     f"execution {execution_s:.3f} s")
+        for d in task.driver_stats:
+            lines.append(
+                f"driver {d.pipeline}: {d.operators} operators, "
+                f"{d.input_rows} -> {d.output_rows} rows, "
+                f"{d.wall_ns / 1e6:.1f} ms")
+        return "\n".join(lines)
 
     def _check_scans(self, node) -> None:
         if isinstance(node, TableScanNode):

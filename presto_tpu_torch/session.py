@@ -16,14 +16,17 @@ schema, property overrides) and splits the rest across three subsystems:
 ``SESSION_PROPERTIES`` holds the properties whose ``EngineConfig`` field
 this package reads; ``UNPORTED_PROPERTIES`` maps every other property of
 the JAX package's registry to the ROADMAP item that ports its feature,
-and setting one raises ``NotImplementedError`` naming that item.  The
-rule-based and grant-aware access control, GRANT/REVOKE, resource groups
-and the session property manager are ROADMAP A4b.
+and setting one raises ``NotImplementedError`` naming that item.
+``RuleBasedAccessControl`` (file-based rules), ``GrantStore`` with
+``GrantAwareAccessControl`` (GRANT/REVOKE) and ``SessionPropertyManager``
+(rule-based session defaults) are the JAX package's.  Resource groups
+belong to the serving tier (ROADMAP A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import threading
 import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -87,7 +90,7 @@ UNPORTED_PROPERTIES: Dict[str, str] = {
     "spill_threshold_bytes": "A8 (spill)",
     "spill_partitions": "A8 (spill)",
     "grouped_execution_buckets": "A9 (grouped execution)",
-    "query_queue_timeout_s": "A4b (resource groups)",
+    "query_queue_timeout_s": "A13 (resource groups)",
     "scaled_writer_rows_per_task": "A13 (distributed tier)",
     "partial_aggregation_enabled": "A13 (distributed tier)",
     "query_max_total_memory_bytes": "A13 (distributed tier)",
@@ -136,6 +139,9 @@ class Session:
     catalog: str = "tpch"
     schema: Optional[str] = None
     properties: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # PREPARE name FROM stmt storage (Session.preparedStatements role);
+    # values are parsed statement trees
+    prepared: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # explicit transaction opened by START TRANSACTION (None = autocommit)
     txn: Optional[Any] = None
 
@@ -184,6 +190,12 @@ class AccessDeniedError(PermissionError):
     pass
 
 
+def _match(pattern: str, value: str) -> bool:
+    """A rule's '*'-wildcard pattern against a user, source, catalog or
+    table name."""
+    return fnmatch.fnmatch(value, pattern)
+
+
 class AccessControl:
     """SystemAccessControl SPI surface used by the engine."""
 
@@ -193,6 +205,10 @@ class AccessControl:
     def check_can_delete(self, user: str, catalog: str, table: str) -> None:
         # default: DELETE gated like INSERT (write privilege)
         self.check_can_insert(user, catalog, table)
+
+    def check_can_grant(self, user: str, catalog: str, table: str) -> None:
+        # default: granting gated like dropping (ownership-level right)
+        self.check_can_drop_table(user, catalog, table)
 
     def check_can_rename_table(self, user: str, catalog: str,
                                table: str) -> None:
@@ -226,6 +242,174 @@ class AllowAllAccessControl(AccessControl):
 
     def check_can_drop_table(self, user, catalog, table):
         pass
+
+
+class RuleBasedAccessControl(AccessControl):
+    """The file-based access control model (presto-plugin-toolkit's
+    FileBasedSystemAccessControl): ordered rules of
+    {user, catalog, table, privileges}; first match wins, no match denies.
+    Patterns are '*'-wildcards."""
+
+    def __init__(self, rules: List[Dict[str, Any]]):
+        self.rules = rules
+
+    def _check(self, user: str, catalog: str, table: str,
+               privilege: str) -> None:
+        for rule in self.rules:
+            if not _match(rule.get("user", "*"), user):
+                continue
+            if not _match(rule.get("catalog", "*"), catalog):
+                continue
+            if not _match(rule.get("table", "*"), table):
+                continue
+            if privilege in rule.get("privileges", ()):
+                return
+            break  # first matching rule decides
+        raise AccessDeniedError(
+            f"Access denied: {user} cannot {privilege} "
+            f"{catalog}.{table}")
+
+    def check_can_select(self, user, catalog, table):
+        self._check(user, catalog, table, "select")
+
+    def check_can_insert(self, user, catalog, table):
+        self._check(user, catalog, table, "insert")
+
+    def check_can_create_table(self, user, catalog, table):
+        self._check(user, catalog, table, "create")
+
+    def check_can_drop_table(self, user, catalog, table):
+        self._check(user, catalog, table, "drop")
+
+    def check_can_delete(self, user, catalog, table):
+        self._check(user, catalog, table, "delete")
+
+    def check_can_grant(self, user, catalog, table):
+        self._check(user, catalog, table, "grant")
+
+
+class GrantStore:
+    """SQL-managed privileges: GRANT/REVOKE state, keyed
+    (user, catalog, table) -> set of privileges ('all' covers every
+    privilege).  Thread-safe; shared by every session of a runner."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._grants: Dict[Tuple[str, str, str], set] = {}
+
+    def grant(self, user: str, catalog: str, table: str,
+              privileges) -> None:
+        with self._lock:
+            self._grants.setdefault((user, catalog, table),
+                                    set()).update(privileges)
+
+    def revoke(self, user: str, catalog: str, table: str,
+               privileges) -> None:
+        with self._lock:
+            have = self._grants.get((user, catalog, table))
+            if have:
+                have.difference_update(privileges)
+
+    def has(self, user: str, catalog: str, table: str,
+            privilege: str) -> bool:
+        with self._lock:
+            have = self._grants.get((user, catalog, table), set())
+            return privilege in have or "all" in have
+
+    def rename_table(self, catalog: str, old: str, new: str) -> None:
+        """Migrate grants when a table is renamed."""
+        with self._lock:
+            for key in [k for k in self._grants
+                        if k[1] == catalog and k[2] == old]:
+                self._grants[(key[0], catalog, new)] = \
+                    self._grants.pop(key)
+
+
+class GrantAwareAccessControl(AccessControl):
+    """Access control driven by the GrantStore: the table owner (creator)
+    and any ``admin_users`` bypass checks; everyone else needs an explicit
+    GRANT.  This is the SQL-standard access-control mode of the reference
+    (sql-standard AccessControl in presto-hive, GRANT/REVOKE in
+    StatementAnalyzer)."""
+
+    def __init__(self, grants: Optional[GrantStore] = None,
+                 admin_users=("admin",)):
+        # when None, the runner binds its shared GrantStore at attach time
+        self.grants = grants
+        self.admins = set(admin_users)
+        self._owners: Dict[Tuple[str, str], str] = {}
+
+    def _check(self, user, catalog, table, privilege):
+        if user in self.admins:
+            return
+        if self._owners.get((catalog, table)) == user:
+            return
+        if self.grants.has(user, catalog, table, privilege):
+            return
+        raise AccessDeniedError(
+            f"Access denied: {user} cannot {privilege} {catalog}.{table}")
+
+    def check_can_select(self, user, catalog, table):
+        self._check(user, catalog, table, "select")
+
+    def check_can_insert(self, user, catalog, table):
+        self._check(user, catalog, table, "insert")
+
+    def check_can_create_table(self, user, catalog, table):
+        # first creator wins: never steal ownership when the table
+        # already exists (the create itself will fail later)
+        self._owners.setdefault((catalog, table), user)
+
+    def check_can_drop_table(self, user, catalog, table):
+        if user in self.admins or self._owners.get(
+                (catalog, table)) == user:
+            return
+        self._check(user, catalog, table, "drop")
+
+    def check_can_delete(self, user, catalog, table):
+        self._check(user, catalog, table, "delete")
+
+    def notify_table_renamed(self, catalog, old, new):
+        if (catalog, old) in self._owners:
+            self._owners[(catalog, new)] = self._owners.pop((catalog, old))
+        if self.grants is not None:
+            self.grants.rename_table(catalog, old, new)
+
+
+# ---------------------------------------------------------------------------
+# session property managers
+# ---------------------------------------------------------------------------
+
+class SessionPropertyManager:
+    """Rule-based session property defaults
+    (presto-session-property-managers role: the db/file-backed
+    SessionPropertyConfigurationManager applies matching rules'
+    properties to a session before execution; explicit SET SESSION
+    values still win).
+
+    Rules are ordered dicts: {"user": pattern, "source": pattern,
+    "properties": {name: value}}; '*' wildcards; all matching rules
+    apply, later rules overriding earlier ones."""
+
+    def __init__(self, rules: List[Dict[str, Any]]):
+        self.rules = list(rules)
+
+    def defaults_for(self, user: str, source: str = "") -> Dict[str, str]:
+        out: Dict[str, str] = {}
+        for rule in self.rules:
+            if not _match(rule.get("user", "*"), user):
+                continue
+            if not _match(rule.get("source", "*"), source):
+                continue
+            out.update(rule.get("properties", {}))
+        return out
+
+    def apply(self, session: Session, source: str = "") -> None:
+        """Set matched defaults that the session has not set itself."""
+        for name, value in self.defaults_for(session.user,
+                                             source).items():
+            if name.lower() not in session.properties:
+                session.set_property(name, str(value))
 
 
 # ---------------------------------------------------------------------------

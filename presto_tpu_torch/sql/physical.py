@@ -578,8 +578,8 @@ def decompose_aggregates(aggregates: Sequence[PlanAggregate],
     return pre_exprs, agg_channels, finalize_specs
 
 
-# merge primitive for each partial component primitive (the collect and
-# sketch merges are ROADMAP A5 and raise at the operator)
+# merge primitive for each partial component primitive (the collect merge
+# is ROADMAP A6 and raises at the operator)
 _FINAL_PRIM = {"count": "sum", "sum": "sum", "sumsq": "sum", "min": "min",
                "max": "max", "sumln": "sum", "sumhash": "sum",
                "collect": "collect_merge", "hll": "hll_merge",

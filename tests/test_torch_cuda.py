@@ -1,9 +1,11 @@
 """presto_tpu_torch on a CUDA card: the hand-written kernels against
 their plain PyTorch versions, the repeat-run bit identity of the float
 group sums on every tier, SQL on cuda against the same SQL on the CPU,
-and the memory catalog's tables on the card (no copy to scan them, one
-read of the card a stored batch to DELETE, no column to the host to
-ANALYZE).  Every test here needs the card and skips without one.
+the memory catalog's tables on the card (no copy to scan them, one read
+of the card a stored batch to DELETE, no column to the host to ANALYZE),
+the system catalogs' batches on the card, a prepared Q3 and the sketch
+aggregates against the CPU.  Every test here needs the card and skips
+without one.
 
 This file imports neither jax nor presto_tpu, so it also runs where jax
 is not installed:
@@ -696,3 +698,60 @@ def test_q1_over_memory_on_cuda_matches_cpu(card):
                 assert x == pytest.approx(y, rel=1e-9, abs=0.0)
             else:
                 assert x == y
+
+
+def test_information_schema_batches_on_cuda(card, monkeypatch):
+    """The system and information_schema catalogs build their batches on
+    the runner's device: the scan hands on batches already on the card,
+    and the rows are the CPU's."""
+    from presto_tpu_torch.connectors import system as SY
+
+    seen = []
+    real = SY._RowsPageSource.__iter__
+
+    def spy(self):
+        for b in real(self):
+            seen.append(b.device)
+            yield b
+
+    monkeypatch.setattr(SY._RowsPageSource, "__iter__", spy)
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card)
+    cpu = LocalQueryRunner.tpch(scale=0.01, device="cpu")
+    sqls = ("select count(*) from information_schema.columns "
+            "where table_catalog = 'tpch'",
+            "select table_catalog, table_name from "
+            "information_schema.tables order by 1, 2",
+            "select * from system.nodes")
+    got = [runner.execute(sql).rows for sql in sqls]
+    assert len(seen) == 3 and all(d.type == "cuda" for d in seen), seen
+    assert got == [cpu.execute(sql).rows for sql in sqls]
+    assert got[0] == [(61,)]
+
+
+def test_prepared_q3_on_cuda_matches_cpu(card):
+    """EXECUTE of Q3 prepared with its segment and dates as parameters:
+    the rows of Q3 itself and of the CPU's EXECUTE, with B2's launches."""
+    prepare = "prepare q3 from " + C.Q3_PREPARED
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card)
+    runner.execute(prepare)
+    before = B2.LOOKUP_LAUNCHES.count
+    got = runner.execute(C.EXEC_Q3).rows
+    assert B2.LOOKUP_LAUNCHES.count > before
+    assert got == runner.execute(C.Q3).rows
+    cpu = LocalQueryRunner.tpch(scale=0.01, device="cpu")
+    cpu.execute(prepare)
+    _same_rows(got, cpu.execute(C.EXEC_Q3).rows)
+
+
+def test_sketches_on_cuda_match_cpu_bits(card):
+    """approx_distinct and approx_percentile over batches on the card give
+    the CPU's bits (one feed thread, so KLL sees the same order)."""
+    from presto_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig(task_concurrency=1)
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card, config=cfg)
+    cpu = LocalQueryRunner.tpch(scale=0.01, device="cpu", config=cfg)
+    for sql in (C.SKETCH_GLOBAL, C.SKETCH_GROUPED):
+        got = runner.execute(sql).rows
+        assert got == runner.execute(sql).rows
+        assert sorted(got) == sorted(cpu.execute(sql).rows)

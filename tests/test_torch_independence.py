@@ -48,7 +48,9 @@ for name in ("presto_tpu_torch.ops.hashtable",
              "presto_tpu_torch.exec.dynamicfilter",
              "presto_tpu_torch.connectors.tpcds",
              "presto_tpu_torch.ops.window", "presto_tpu_torch.exec.windowop",
-             "presto_tpu_torch.exec.streamagg"):
+             "presto_tpu_torch.exec.streamagg",
+             "presto_tpu_torch.connectors.system", "presto_tpu_torch.native",
+             "presto_tpu_torch.sketch", "presto_tpu_torch.exec.context"):
     assert name in names, name
 
 sql = '''
@@ -84,6 +86,18 @@ runner.execute("select l_orderkey, sum(l_quantity) from lineitem "
                "group by l_orderkey")
 ops = [s.operator for s in runner._last_task.operator_stats]
 assert any("StreamingAggregation" in o for o in ops), ops
+# the statements of the system catalogs, a view, a prepared statement and
+# the sketches (xxh64, HyperLogLog, KLL) with jax blocked
+assert len(runner.execute("show catalogs").rows) == 6
+runner.execute("create view v1 as select n_name from nation")
+runner.execute("prepare p1 from select count(*) from v1 where n_name > ?")
+assert runner.execute("execute p1 using 'M'").rows == [(9,)]
+ad, ap = runner.execute("select approx_distinct(l_orderkey), "
+                        "approx_percentile(l_quantity, 0.5) "
+                        "from lineitem").rows[0]
+assert abs(ad - 15000) < 1000 and 20 <= ap <= 30, (ad, ap)
+ea = runner.execute("explain analyze select count(*) from nation").rows
+assert ("Operator stats:",) in ea
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("rows", len(rows))

@@ -52,7 +52,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from chip_smoke import (  # noqa: E402
-    PARTKEY, Q1, Q3, Q6, SQL_QUERIES, card_line, ds_sql, rows_match,
+    PARTKEY, Q1, Q3, Q6, SKETCH_GLOBAL, SKETCH_GROUPED, SQL_QUERIES,
+    card_line, ds_sql, rows_match,
 )
 
 # a GROUP BY on lineitem's sort key that the planner can stream
@@ -61,7 +62,8 @@ select l_orderkey, count(*), sum(l_extendedprice) from lineitem
 group by l_orderkey order by 3 desc, 1 limit 10"""
 
 QUERIES = {"q1": Q1, "q6": Q6, "q3": Q3, "partkey": PARTKEY,
-           "orderkey": ORDERKEY, **SQL_QUERIES}
+           "orderkey": ORDERKEY, "sketch_grouped": SKETCH_GROUPED,
+           "sketch_global": SKETCH_GLOBAL, **SQL_QUERIES}
 
 
 def _busy_seconds(events) -> float:
