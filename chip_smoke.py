@@ -113,7 +113,28 @@ Phases (any failure exits non-zero; nothing is caught):
    ``sketch_check``); GRANT/REVOKE under GrantAwareAccessControl and
    CALL system.runtime.kill_query (``access``).  Its kept inputs go to
    phase 5; it runs before phase 5's checks;
-5. each kernel at the inputs phases 4, 6, 7 and 8 kept for each path, held
+9. nested types, on phase 3's runner at ``--scale`` (``NESTED_QUERIES``):
+   UNNEST of a three-element ARRAY constructor over orders WITH
+   ORDINALITY grouped by priority (4.5M unnested rows at SF1; must launch
+   B1), the words of ``split(o_comment, ' ')`` unnested and counted (the
+   top 20), ``array_agg`` and ``map_agg`` over one month of orders by
+   priority (arrays compared as multisets: four feed threads fix no
+   order; maps exactly), ``cardinality(array_agg(o_orderkey))`` against
+   ``count(*)`` over all of orders, corr/covar_samp/covar_pop/
+   regr_slope/regr_intercept and min_by/max_by over orders by priority
+   (numpy's two-pass values to 1e-9 relative, an intercept within its
+   float64 bound), and ``checksum`` of three lineitem columns, bit-equal
+   to the port's ``row_hash`` summed on the CPU over the generator's
+   batches; each through ``run_paths`` against oracles in numpy and
+   Python, then once more with one feed thread under CUDA's sync debug
+   mode: at most one read of the card an UNNEST batch, the output
+   batches' tensors on cuda, the copies of host tensors to the card
+   counted (``nested`` lines); then one checksum per flat type at SF0.01
+   equal to the CPU runner's and the tiny UNNEST cases (LEFT JOIN UNNEST
+   of an empty and a NULL array, ``unnest(array[1,2], array[])``)
+   against their literal answers (``nested_small``).  Its kept inputs go
+   to phase 5; it runs before phase 5's checks;
+5. each kernel at the inputs phases 4, 6, 7, 8 and 9 kept for each path, held
    against its plain version and timed as in phase 2 (``segment_sums``,
    ``probe_insert`` and ``probe_lookup`` lines with a ``path``, and under
    ``by_path`` in the kernels line); a path that launched a kernel and
@@ -1374,8 +1395,9 @@ def rows_match_limit(got, want, key, label: str, limit=None) -> None:
 
 
 class DeviceSpy:
-    """Records the device of every tensor the named ops functions get,
-    so a run can show its join and aggregation inputs were on the card;
+    """Records the device of every tensor the named ops functions get (a
+    batch's and a column's too, children included), so a run can show
+    its join and aggregation inputs and its output were on the card;
     and counts the calls of the functions that read the device to the
     host (``count``: the window operator's partition starts,
     TopNRowNumber's kept rows, the streaming aggregation's one read a
@@ -1418,6 +1440,13 @@ class DeviceSpy:
         elif isinstance(obj, (list, tuple)):
             for o in obj:
                 self._record(label, o)
+        elif hasattr(obj, "columns"):                   # a Batch
+            self._record(label, obj.columns)
+        elif hasattr(obj, "children"):                  # a Column
+            for a in (obj.values, obj.valid):
+                if a is not None and not isinstance(a, torch.Tensor):
+                    self.seen.append((label, torch.device("cpu")))
+            self._record(label, [obj.values, obj.valid, obj.children])
 
     def restore(self) -> None:
         for module, name, real in reversed(self._undo):
@@ -1627,7 +1656,8 @@ def scanned_rows(runner, scale: float, sql: str) -> int:
 
 def run_paths(runner, queries: dict, card: str, scale: float, modules,
               compare, spy: "DeviceSpy", spy_inputs: dict,
-              must_launch: dict, scanned, warm=None) -> tuple:
+              must_launch: dict, scanned, warm=None,
+              order_free=(), cold=None) -> tuple:
     """One phase of SQL paths on the card: for each query of ``queries``
     (label -> SQL), a cold run with the launch counts set to 0 just
     before it and read just after, then two warm runs; every run's rows
@@ -1639,8 +1669,11 @@ def run_paths(runner, queries: dict, card: str, scale: float, modules,
     fullest table (``PathInputs``).  Each query prints a ``sql`` line:
     its walls, the rows of every table scan of its plan (``scanned``),
     its launches, join and aggregation tiers, and the host reads
-    ``spy`` counted in its cold run.  Returns the launches and the kept
-    inputs by path, and puts each query's warm wall in ``warm`` when
+    ``spy`` counted in its cold run.  The paths of ``order_free`` keep
+    only the oracle's check on every run: their rows follow the order in
+    which the feed threads' rows arrive (a collected array, the sums over
+    it).  Returns the launches and the kept inputs by path, and puts each
+    query's warm wall in ``warm`` and its cold wall in ``cold`` when
     given."""
     S, B2, H, J, G = modules
     launches, kept = {}, {}
@@ -1678,7 +1711,8 @@ def run_paths(runner, queries: dict, card: str, scale: float, modules,
         kept[label] = keep.take()
         for rows in results:
             compare(label, rows)
-        if any(r != results[0] for r in results[1:]):
+        if label not in order_free and any(r != results[0]
+                                           for r in results[1:]):
             raise AssertionError(f"{label}: runs differ in their bits")
         for kind in must_launch.get(label, ()):
             if launches[label][kind] < 1:
@@ -1688,6 +1722,8 @@ def run_paths(runner, queries: dict, card: str, scale: float, modules,
         n_rows = scanned(sql)
         if warm is not None:
             warm[label] = min(walls[1:])
+        if cold is not None:
+            cold[label] = walls[0]
         print("sql " + json.dumps({
             "query": label, "scale": scale, "rows": n_rows,
             "result_rows": len(results[0]), "cold_s": walls[0],
@@ -2315,28 +2351,41 @@ def host_syncs(fn):
     return out, sites, len(copy_syncs)
 
 
-def host_copies(fn):
+def host_copies(fn, to_card: bool = False):
     """``fn()``, and the element count of every card tensor it copied to
-    the host (``Tensor.cpu``, ``.numpy``, ``.tolist``, ``.item``)."""
+    the host (``Tensor.cpu``, ``.numpy``, ``.tolist``, ``.item``), or with
+    ``to_card`` of every host tensor or array it copied to the card
+    (``Tensor.to``, ``.cuda``, ``torch.as_tensor``)."""
     import torch
 
+    if to_card:
+        targets = [(torch.Tensor, "to"), (torch.Tensor, "cuda"),
+                   (torch, "as_tensor")]
+    else:
+        targets = [(torch.Tensor, name)
+                   for name in ("cpu", "numpy", "tolist", "item")]
     sizes = []
     undo = []
-    for name in ("cpu", "numpy", "tolist", "item"):
-        real = getattr(torch.Tensor, name)
+    for owner, name in targets:
+        real = getattr(owner, name)
 
-        def counted(self, *args, _real=real, **kwargs):
-            if self.is_cuda:
-                sizes.append(self.numel())
-            return _real(self, *args, **kwargs)
+        def counted(src, *args, _real=real, **kwargs):
+            out = _real(src, *args, **kwargs)
+            on_card = isinstance(src, torch.Tensor) and src.is_cuda
+            if not to_card and on_card:
+                sizes.append(src.numel())
+            elif (to_card and not on_card and isinstance(out, torch.Tensor)
+                    and out.is_cuda):
+                sizes.append(out.numel())
+            return out
 
-        setattr(torch.Tensor, name, counted)
-        undo.append((name, real))
+        setattr(owner, name, counted)
+        undo.append((owner, name, real))
     try:
         out = fn()
     finally:
-        for name, real in undo:
-            setattr(torch.Tensor, name, real)
+        for owner, name, real in reversed(undo):
+            setattr(owner, name, real)
     return out, sizes
 
 
@@ -2771,6 +2820,286 @@ def statements_phase(runner, scale: float, card: str, want: dict,
     return launches, kept
 
 
+# --------------------------------------------------------------------------
+# phase 9: nested types (UNNEST, split, the collect aggregates, the
+# row-state statistics) and checksum on the card
+# --------------------------------------------------------------------------
+
+# one month of orders for the collected arrays and maps (about 19,000
+# orders at SF1), so that the result stays a few MB
+NESTED_MONTH = ((1995, 3, 1), (1995, 4, 1))
+NESTED_QUERIES = {
+    "nested_unnest": (
+        "select o_orderpriority, count(*), sum(v), max(i) from orders "
+        "cross join unnest(array[o_custkey, o_shippriority, o_orderkey]) "
+        "with ordinality as t(v, i) group by o_orderpriority order by 1"),
+    "nested_words": (
+        "select w, count(*) from orders cross join unnest(split(o_comment, "
+        "' ')) as t(w) group by w order by 2 desc, 1 limit 20"),
+    "nested_collect": (
+        "select o_orderpriority, array_agg(o_orderkey), map_agg(o_orderkey,"
+        " o_custkey) from orders where o_orderdate >= date '1995-03-01' "
+        "and o_orderdate < date '1995-04-01' group by o_orderpriority "
+        "order by 1"),
+    "nested_cardinality": (
+        "select o_orderpriority, cardinality(array_agg(o_orderkey)), "
+        "count(*) from orders group by o_orderpriority order by 1"),
+    "nested_stats": (
+        "select o_orderpriority, corr(o_totalprice, o_custkey), "
+        "covar_samp(o_totalprice, o_custkey), covar_pop(o_totalprice, "
+        "o_custkey), regr_slope(o_totalprice, o_custkey), "
+        "regr_intercept(o_totalprice, o_custkey), min_by(o_orderkey, "
+        "o_totalprice), max_by(o_orderkey, o_totalprice) from orders "
+        "group by o_orderpriority order by 1"),
+    "checksum": (
+        "select checksum(l_orderkey), checksum(l_shipdate), "
+        "checksum(l_returnflag) from lineitem"),
+}
+# a collected array's order, and the sums over one, follow the feed
+# threads' arrival order: these paths are held to the oracle on every run
+NESTED_ORDER_FREE = ("nested_collect", "nested_stats")
+# the unnested rows GROUP BY the five priorities on the direct tier: B1
+NESTED_MUST_LAUNCH = {"nested_unnest": ("b1",)}
+# one checksum per flat type at SF0.01, against the CPU runner's
+CHECKSUM_TYPES = (
+    "select checksum(o_orderkey), checksum(cast(o_custkey as integer)), "
+    "checksum(cast(o_custkey as smallint)), checksum(cast(o_shippriority "
+    "as tinyint)), checksum(o_totalprice), checksum(cast(o_totalprice as "
+    "real)), checksum(o_totalprice > 100000), checksum(o_orderdate), "
+    "checksum(cast(o_orderdate as timestamp)), checksum(cast(o_totalprice "
+    "as decimal(12,2))), checksum(o_orderpriority), "
+    "checksum(nullif(o_custkey % 3, 0)) from orders")
+# the tiny cases, against their literal answers
+NESTED_SMALL = {
+    "select t.id, u.v from (values (1, array[7]), (2, array[]), (3, "
+    "cast(null as array(bigint)))) t(id, arr) left join unnest(t.arr) as "
+    "u(v) on true order by t.id": [(1, 7), (2, None), (3, None)],
+    "select t.id, u.o from (values (1, array[7]), (2, array[])) t(id, arr)"
+    " left join unnest(t.arr) with ordinality as u(v, o) on true "
+    "order by t.id": [(1, 1), (2, None)],
+    "select * from unnest(array[1,2], array[])": [(1, None), (2, None)],
+}
+F64_EPS = 2.0 ** -53
+
+
+def _stat_bound(n: int, my: float, slope: float, mx: float) -> float:
+    """The float64 error bound of an intercept my - slope * mx from sums
+    over n rows (each of its terms from an n-term sum: 2 n u of its
+    magnitude), the tolerance where the intercept cancels toward 0."""
+    return 2 * n * F64_EPS * (abs(my) + abs(slope * mx))
+
+
+def nested_oracles(scale: float, batch_rows: int) -> dict:
+    """Phase 9's oracles from the generator's columns, with numpy and
+    Python (none of the port's operators): per priority, the unnested
+    rows' count, sum and largest ordinality; the words of the comments
+    by Python's ``str.split``; one month's order keys and key -> customer
+    maps; the two-pass statistics and the keys at the least and greatest
+    price; and the checksums as wrapping sums of the port's ``row_hash``
+    run on the CPU over the generator's batches (a varchar's codes, as
+    the engine hashes them)."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.ops.hashing import row_hash
+
+    o = table_columns(scale, "orders", [
+        "o_orderkey", "o_custkey", "o_shippriority", "o_orderpriority",
+        "o_comment", "o_orderdate", "o_totalprice"])
+    prio = o["o_orderpriority"]
+    keys = sorted(set(prio.tolist()))
+    want = {"nested_unnest": [], "nested_cardinality": [],
+            "nested_collect": [], "nested_stats": []}
+    lo, hi = (_days(*d) for d in NESTED_MONTH)
+    month = (o["o_orderdate"] >= lo) & (o["o_orderdate"] < hi)
+    stats_extra = {}
+    for p in keys:
+        m = prio == p
+        n = int(m.sum())
+        total = int(o["o_custkey"][m].sum() + o["o_shippriority"][m].sum()
+                    + o["o_orderkey"][m].sum())
+        want["nested_unnest"].append((p, 3 * n, total, 3))
+        want["nested_cardinality"].append((p, n, n))
+        mm = m & month
+        ok = o["o_orderkey"][mm].tolist()
+        want["nested_collect"].append(
+            (p, sorted(ok), dict(zip(ok, o["o_custkey"][mm].tolist()))))
+        y = o["o_totalprice"][m].astype(np.float64)
+        x = o["o_custkey"][m].astype(np.float64)
+        mx, my = x.mean(), y.mean()
+        dx, dy = x - mx, y - my
+        cxy, cxx, cyy = (dx * dy).sum(), (dx * dx).sum(), (dy * dy).sum()
+        slope = cxy / cxx
+        okeys = o["o_orderkey"][m]
+        want["nested_stats"].append((
+            p, cxy / np.sqrt(cxx * cyy), cxy / (n - 1), cxy / n, slope,
+            my - slope * mx, set(okeys[y == y.min()].tolist()),
+            set(okeys[y == y.max()].tolist())))
+        stats_extra[p] = _stat_bound(n, my, slope, mx)
+    words = collections.Counter()
+    for c in o["o_comment"].tolist():
+        words.update(c.split(" "))
+    want["nested_words"] = sorted(words.items(), key=lambda kv: (-kv[1],
+                                                                 kv[0]))
+    want["intercept_bound"] = stats_extra
+
+    conn = TpchConnector(scale=scale)
+    handle = conn.get_table("lineitem")
+    names = ["l_orderkey", "l_shipdate", "l_returnflag"]
+    sums = [0, 0, 0]
+    for split in conn.get_splits(handle, 1):
+        for b in conn.page_source(split, names, batch_rows):
+            for i, c in enumerate(b.columns):
+                v = torch.from_numpy(np.asarray(c.values)[:b.num_rows])
+                ok = None if c.valid is None else torch.from_numpy(
+                    np.asarray(c.valid)[:b.num_rows])
+                sums[i] += int(row_hash([(v, ok, c.type)]).sum())
+    want["checksum"] = [tuple(((x + (1 << 63)) % (1 << 64)) - (1 << 63)
+                              for x in sums)]
+    return want
+
+
+def _nested_compare(want: dict):
+    """compare(label, rows) for ``run_paths``: each path against its
+    oracle (the arrays as multisets, the maps exactly; the statistics to
+    1e-9 relative, an intercept within its float64 bound; min_by and
+    max_by among the keys tied at the extreme)."""
+
+    def compare(label, rows):
+        w = want[label]
+        if label == "nested_words":
+            rows_match_limit(rows, w, _by((1, True), (0, False))[0], label,
+                             limit=20)
+        elif label == "nested_collect":
+            got = [(p, sorted(a), m) for p, a, m in rows]
+            if got != w:
+                raise AssertionError(f"{label}: arrays or maps differ")
+        elif label == "nested_stats":
+            if [r[0] for r in rows] != [r[0] for r in w]:
+                raise AssertionError(f"{label}: groups {rows}")
+            for g, e in zip(rows, w):
+                rows_match([g[1:5]], [e[1:5]], label)
+                bound = max(1e-9 * abs(e[5]), want["intercept_bound"][e[0]])
+                if abs(g[5] - e[5]) > bound:
+                    raise AssertionError(f"{label} {e[0]} intercept "
+                                         f"{g[5]!r} != {e[5]!r}")
+                if g[6] not in e[6] or g[7] not in e[7]:
+                    raise AssertionError(f"{label} {e[0]} min_by/max_by "
+                                         f"{g[6:]} not in {e[6:]}")
+        elif label == "checksum":
+            if rows != w:
+                raise AssertionError(f"checksum {rows} != CPU {w}")
+        else:
+            rows_match(rows, w, label)
+
+    return compare
+
+
+def nested_reads(runner, sql: str):
+    """One run of ``sql`` on ``runner`` (one feed thread) that no wall
+    reads: its rows and the counts of ``host_syncs`` (every read of the
+    card, and those made in ``exec/unnestop.py``) beside the UNNEST
+    operator's input batches, and of ``host_copies`` (copies to the
+    card).  ``DeviceSpy`` fails the run unless its output batches lie on
+    the card."""
+    from presto_tpu_torch.exec import operators as OPS
+
+    spy = DeviceSpy()
+    spy.wrap(OPS.OutputCollector, "add_input", "output")
+    try:
+        (res, sites, _), copies = host_copies(
+            lambda: host_syncs(lambda: runner.execute(sql)), to_card=True)
+    finally:
+        spy.restore()
+    spy.check(["output"])
+    unnest = os.path.join("presto_tpu_torch", "exec", "unnestop.py") + ":"
+    return res.rows, {
+        "unnest_batches": sum(s.input_batches
+                              for s in runner._last_task.operator_stats
+                              if "Unnest" in s.operator),
+        "unnest_reads": sum(n for site, n in sites.items()
+                            if site.startswith(unnest)),
+        "reads": sum(sites.values()), "copies_to_card": len(copies)}
+
+
+def nested_phase(runner, scale: float, card: str, modules) -> tuple:
+    """Phase 9 on phase 3's runner at ``scale``: the paths of
+    ``NESTED_QUERIES`` through ``run_paths`` against ``nested_oracles``
+    (cold and two warm runs, the launches of each path's own cold run;
+    ``nested_unnest`` must launch B1), and for each one more run with
+    one feed thread (``nested_reads``): at most one read of the card an
+    UNNEST batch, the output on cuda.  Then
+    one checksum per flat type at SF0.01 against the CPU runner, and the
+    tiny UNNEST cases against their literal answers.  One ``nested`` line
+    a path.  Returns the launches and kept inputs by path."""
+    from presto_tpu_torch.config import EngineConfig
+    from presto_tpu_torch.localrunner import LocalQueryRunner
+
+    S, B2, H, J, G = modules
+    t0 = time.perf_counter()
+    want = nested_oracles(scale, runner.config.scan_batch_rows)
+    print(f"nested_oracles: {time.perf_counter() - t0:.2f} s at "
+          f"SF{scale}", flush=True)
+    spy = DeviceSpy()
+    spy.wrap(G, "direct_grouped_aggregate", "aggregation")
+    warm, cold = {}, {}
+    launches, kept = run_paths(
+        runner, NESTED_QUERIES, card, scale, modules,
+        _nested_compare(want), spy,
+        {label: ["aggregation"] if label == "nested_unnest" else []
+         for label in NESTED_QUERIES}, NESTED_MUST_LAUNCH,
+        lambda sql: scanned_rows(runner, scale, sql), warm,
+        order_free=NESTED_ORDER_FREE, cold=cold)
+    spy.restore()
+    serial = LocalQueryRunner.tpch(scale=scale,
+                                   config=EngineConfig(task_concurrency=1))
+    compare = _nested_compare(want)
+    for label, sql in NESTED_QUERIES.items():
+        rows, counts = nested_reads(serial, sql)
+        compare(label, rows)
+        batches = counts["unnest_batches"]
+        if counts["unnest_reads"] > batches:
+            raise AssertionError(f"{label}: {counts['unnest_reads']} reads "
+                                 f"of the card in {batches} UNNEST batches")
+        if label in ("nested_unnest", "nested_words") and (
+                batches == 0 or counts["unnest_reads"] == 0):
+            # each batch reads its output size: none seen means the
+            # instrument lost them
+            raise AssertionError(f"{label}: {batches} UNNEST batches, "
+                                 f"{counts['unnest_reads']} reads seen")
+        line = {"query": label, "rows": len(rows),
+                "cold_s": cold[label], "warm_s": warm[label],
+                "launches": launches[label],
+                "unnest_reads_per_batch": (counts["unnest_reads"] / batches
+                                           if batches else None),
+                **counts, "card": card}
+        if label == "nested_stats":
+            line["intercepts"] = [
+                {"priority": r[0], "got": g[5], "numpy": r[5],
+                 "bound": want["intercept_bound"][r[0]]}
+                for r, g in zip(want[label], rows)]
+        print("nested " + json.dumps(line), flush=True)
+
+    # one checksum per flat type at SF0.01, and the tiny cases
+    small = LocalQueryRunner.tpch(scale=0.01)
+    cpu = LocalQueryRunner.tpch(scale=0.01, device="cpu")
+    got = small.execute(CHECKSUM_TYPES).rows
+    if got != cpu.execute(CHECKSUM_TYPES).rows:
+        raise AssertionError(f"checksum per type {got} differs from the "
+                             "CPU runner's")
+    for sql, answer in NESTED_SMALL.items():
+        rows = small.execute(sql).rows
+        if rows != answer:
+            raise AssertionError(f"{sql}: {rows}, want {answer}")
+    print("nested_small " + json.dumps({
+        "checksum_types": len(got[0]), "unnest_cases": len(NESTED_SMALL),
+        "card": card}), flush=True)
+    return launches, kept
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -2994,6 +3323,15 @@ def main() -> int:
          "q3": dict(b2_launches["q3"], b1=0)}, (S, B2, H, J, G))
     semi_launches.update(stmt_launches)
     semi_inputs.update(stmt_inputs)
+
+    # -- phase 9: nested types, UNNEST, the collect aggregates and
+    # checksum, on phase 3's runner at --scale; each path cold with the
+    # counts set to 0 just before it and read just after; its kept inputs
+    # join phase 5's checks
+    nested_launches, nested_inputs = nested_phase(
+        runner, args.scale, card, (S, B2, H, J, G))
+    semi_launches.update(nested_launches)
+    semi_inputs.update(nested_inputs)
 
     # -- phase 5: each kernel at the inputs phase 4 kept on each path,
     # against its plain version, with its times

@@ -18,8 +18,14 @@ every transformation returns a new ``Batch`` sharing untouched arrays.
 Arrays may be padded beyond ``num_rows`` (``pad_rows``, the shape-bucket
 policy ``next_bucket``); logical rows always occupy ``[0, num_rows)``.
 
-Nested types (ARRAY/MAP/ROW) are not part of this package yet
-(ROADMAP A6); a nested column raises ``NotImplementedError``.
+Nested columns (ARRAY/MAP/ROW, the reference's ArrayBlock/MapBlock/
+RowBlock) carry flattened ``children`` on the same device as their
+``values``: an ARRAY's ``values`` are int32 element counts (lengths; the
+offsets are their cumsum) and ``children=(elements,)``; a MAP's the same
+with ``children=(keys, values)``; a ROW's ``values`` are an int8
+placeholder and its children are row-aligned field columns.  An ARRAY's
+or MAP's children hold exactly ``sum(lengths)`` rows (padding rows have
+length 0), so their size is known without reading the device.
 """
 
 from __future__ import annotations
@@ -88,6 +94,9 @@ class Dictionary:
         ranks[order] = np.arange(len(self.values), dtype=np.int32)
         return ranks
 
+    def code_of(self, value: str) -> Optional[int]:
+        return self._index.get(value)
+
     def remap_into(self, target: "Dictionary") -> np.ndarray:
         """Return old-code -> target-code mapping, interning as needed."""
         return np.fromiter(
@@ -126,22 +135,61 @@ def _xp(arr):
     return NUMPY
 
 
+_UNSET = object()  # sentinel: "keep existing validity" in with_values
+
+
+def _cat(parts):
+    """Concatenate numpy arrays or tensors of one device."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(list(parts))
+    return np.concatenate(parts)
+
+
+def range_gather_indices(starts, lengths, total: Optional[int] = None):
+    """The positions ``[starts[i], starts[i] + lengths[i])`` of every row
+    i, concatenated: the ragged take of a nested column's children.  On
+    a tensor it is a device gather; ``total`` (the sum of ``lengths``)
+    saves the one read of the device that counts the output."""
+    if isinstance(lengths, torch.Tensor):
+        lengths = lengths.long()
+        if total is None:
+            total = int(lengths.sum())
+        dev = lengths.device
+        if total == 0:
+            return torch.zeros(0, dtype=torch.int64, device=dev)
+        rows = torch.repeat_interleave(
+            torch.arange(lengths.shape[0], device=dev), lengths,
+            output_size=total)
+        begins = torch.cumsum(lengths, 0) - lengths
+        ramp = torch.arange(total, device=dev) - begins[rows]
+        return starts.long()[rows] + ramp
+    lengths = np.asarray(lengths, np.int64)
+    total = int(lengths.sum()) if total is None else total
+    if total == 0:
+        return np.zeros(0, np.int64)
+    ends = np.cumsum(lengths)
+    begins = ends - lengths
+    ramp = np.arange(total, dtype=np.int64) - np.repeat(begins, lengths)
+    return np.repeat(np.asarray(starts, np.int64), lengths) + ramp
+
+
 @dataclasses.dataclass(frozen=True)
 class Column:
-    """One channel of a Batch: values + optional validity (+ dictionary)."""
+    """One channel of a Batch: values + optional validity (+ dictionary,
+    + flattened ``children`` for the nested types; see the module
+    docstring)."""
 
     type: T.Type
     values: Array
     valid: Optional[Array] = None  # bool array; None == all valid
     dictionary: Optional[Dictionary] = None
+    children: Tuple["Column", ...] = ()
 
     def __post_init__(self):
         if self.type.is_dictionary and self.dictionary is None:
             raise ValueError(f"{self.type} column requires a dictionary")
-        if self.type.is_nested:
-            raise NotImplementedError(
-                f"{self.type.display()} columns: ROADMAP A6 ports nested "
-                "types")
+        if self.type.is_nested and not self.children:
+            raise ValueError(f"{self.type} column requires children")
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -149,6 +197,25 @@ class Column:
         if isinstance(self.values, torch.Tensor):
             return self.values.device
         return None
+
+    @property
+    def has_offsets(self) -> bool:
+        """ARRAY/MAP: values are element counts into flattened children."""
+        return isinstance(self.type, (T.ArrayType, T.MapType))
+
+    def starts(self):
+        """Each row's first child position (the offsets without the
+        last)."""
+        if isinstance(self.values, torch.Tensor):
+            lengths = self.values.long()
+            return torch.cumsum(lengths, 0) - lengths
+        lengths = np.asarray(self.values, np.int64)
+        return np.cumsum(lengths) - lengths
+
+    def with_values(self, values: Array, valid=_UNSET) -> "Column":
+        return Column(self.type, values,
+                      self.valid if valid is _UNSET else valid,
+                      self.dictionary, self.children)
 
     def take(self, indices: Array) -> "Column":
         if isinstance(self.values, torch.Tensor):
@@ -160,15 +227,28 @@ class Column:
             idx = _host(indices)
             values = self.values[idx]
             valid = None if self.valid is None else self.valid[idx]
-        return Column(self.type, values, valid, self.dictionary)
+        if self.has_offsets:
+            child_idx = range_gather_indices(self.starts()[idx], values)
+            kids = tuple(c.take(child_idx) for c in self.children)
+            return Column(self.type, values, valid, None, kids)
+        kids = tuple(c.take(idx) for c in self.children)
+        return Column(self.type, values, valid, self.dictionary, kids)
 
     def head(self, n: int) -> "Column":
-        return Column(self.type, self.values[:n],
-                      None if self.valid is None else self.valid[:n],
-                      self.dictionary)
+        """First n rows (an ARRAY's or MAP's children cut to match: one
+        read of a device's lengths)."""
+        lengths = self.values[:n]
+        valid = None if self.valid is None else self.valid[:n]
+        if self.has_offsets:
+            total = int(lengths.sum())
+            kids = tuple(c.head(total) for c in self.children)
+            return Column(self.type, lengths, valid, None, kids)
+        kids = tuple(c.head(n) for c in self.children)
+        return Column(self.type, lengths, valid, self.dictionary, kids)
 
     def pad(self, capacity: int) -> "Column":
-        """Pad to ``capacity`` rows (zero fill, invalid)."""
+        """Pad to ``capacity`` rows (zero fill, invalid; an ARRAY's or
+        MAP's padding rows are empty, its children unchanged)."""
         n = int(self.values.shape[0])
         if n >= capacity:
             return self
@@ -181,22 +261,41 @@ class Column:
         valid = self.valid
         if valid is not None:
             valid = xp.concatenate([valid, xp.zeros((extra,), bool)])
-        return Column(self.type, values, valid, self.dictionary)
+        kids = self.children if self.has_offsets else tuple(
+            c.pad(capacity) for c in self.children)
+        return Column(self.type, values, valid, self.dictionary, kids)
 
     def to_numpy(self) -> "Column":
         valid = None if self.valid is None else _host(self.valid)
-        return Column(self.type, _host(self.values), valid, self.dictionary)
+        return Column(self.type, _host(self.values), valid, self.dictionary,
+                      tuple(c.to_numpy() for c in self.children))
 
     def to_device(self, device) -> "Column":
         valid = None if self.valid is None else _to_tensor(self.valid,
                                                            device)
         return Column(self.type, _to_tensor(self.values, device), valid,
-                      self.dictionary)
+                      self.dictionary,
+                      tuple(c.to_device(device) for c in self.children))
 
     def to_pylist(self, num_rows: int) -> List[Any]:
-        vals = _host(self.values)[:num_rows]
-        valid = None if self.valid is None else _host(self.valid)[:num_rows]
-        if self.type.is_dictionary:
+        col = self.to_numpy()
+        vals = col.values[:num_rows]
+        valid = None if col.valid is None else col.valid[:num_rows]
+        if self.has_offsets:
+            offsets = np.concatenate([np.zeros(1, np.int64),
+                                      np.cumsum(vals, dtype=np.int64)])
+            kid_lists = [c.to_pylist(int(offsets[-1]))
+                         for c in col.children]
+            if isinstance(self.type, T.MapType):
+                out = [dict(zip(kid_lists[0][lo:hi], kid_lists[1][lo:hi]))
+                       for lo, hi in zip(offsets[:-1], offsets[1:])]
+            else:
+                out = [kid_lists[0][lo:hi]
+                       for lo, hi in zip(offsets[:-1], offsets[1:])]
+        elif isinstance(self.type, T.RowType):
+            kid_lists = [c.to_pylist(num_rows) for c in col.children]
+            out = [tuple(k[i] for k in kid_lists) for i in range(num_rows)]
+        elif self.type.is_dictionary:
             d = self.dictionary
             out = [d.values[int(c)] if 0 <= int(c) < len(d) else None
                    for c in vals]
@@ -205,6 +304,13 @@ class Column:
         if valid is not None:
             out = [v if ok else None for v, ok in zip(out, valid)]
         return out
+
+    @property
+    def size_bytes(self) -> int:
+        total = _nbytes(self.values)
+        if self.valid is not None:
+            total += _nbytes(self.valid)
+        return total + sum(c.size_bytes for c in self.children)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,12 +384,7 @@ class Batch:
 
     @property
     def size_bytes(self) -> int:
-        total = 0
-        for c in self.columns:
-            total += _nbytes(c.values)
-            if c.valid is not None:
-                total += _nbytes(c.valid)
-        return total
+        return sum(c.size_bytes for c in self.columns)
 
     def __repr__(self) -> str:  # pragma: no cover
         ts = ", ".join(c.type.display() for c in self.columns)
@@ -321,16 +422,37 @@ def batch_from_arrays(columns, device) -> Batch:
     return Batch(tuple(cols), n or 0).to_device(device)
 
 
-def column_from_pylist(typ: T.Type, values: Sequence[Any]) -> Column:
+def column_from_pylist(typ: T.Type, values: Sequence[Any],
+                       dictionary: Optional[Dictionary] = None) -> Column:
     """A host Column from Python values (None == NULL): the BlockBuilder
-    role for the flat types (nested ones are ROADMAP A6)."""
+    role.  Nested values: ARRAY from lists/tuples, MAP from dicts, ROW
+    from tuples."""
     n = len(values)
     valid = None
     if any(v is None for v in values):
         valid = np.fromiter((v is not None for v in values), dtype=bool,
                             count=n)
+    if isinstance(typ, (T.ArrayType, T.MapType)):
+        lengths = np.fromiter((0 if v is None else len(v) for v in values),
+                              dtype=np.int32, count=n)
+        if isinstance(typ, T.MapType):
+            kids = (column_from_pylist(typ.key, [
+                        k for v in values if v is not None for k in v]),
+                    column_from_pylist(typ.value, [
+                        x for v in values if v is not None
+                        for x in v.values()]))
+        else:
+            kids = (column_from_pylist(typ.element, [
+                e for v in values if v is not None for e in v]),)
+        return Column(typ, lengths, valid, None, kids)
+    if isinstance(typ, T.RowType):
+        kids = tuple(
+            column_from_pylist(ft, [None if v is None else v[fi]
+                                    for v in values])
+            for fi, ft in enumerate(typ.field_types))
+        return Column(typ, np.zeros(n, np.int8), valid, None, kids)
     if typ.is_dictionary:
-        dictionary = Dictionary()
+        dictionary = dictionary if dictionary is not None else Dictionary()
         codes = np.fromiter(
             (dictionary.intern(v) if v is not None else 0 for v in values),
             dtype=np.int32, count=n)
@@ -352,59 +474,93 @@ def batch_from_pylist(schema: Sequence[T.Type],
 
 
 def null_column(typ: T.Type, n: int, device) -> Column:
-    """``n`` NULLs of ``typ`` as tensors on ``device``."""
-    from presto_tpu_torch.expr.xp import torch_dtype
-
-    values = torch.zeros(n, dtype=torch_dtype(typ.np_dtype), device=device)
-    dictionary = Dictionary() if typ.is_dictionary else None
-    return Column(typ, values, torch.zeros(n, dtype=torch.bool,
-                                           device=device), dictionary)
+    """``n`` NULLs of ``typ`` as tensors on ``device`` (an ARRAY or MAP
+    of empty rows, a ROW of NULL fields)."""
+    col = empty_column(typ).to_device(device).pad(n)
+    return col.with_values(col.values, torch.zeros(n, dtype=torch.bool,
+                                                   device=device))
 
 
 def _concat_columns(cols: Sequence[Column],
                     row_counts: Sequence[int]) -> Column:
-    """Concatenate row-count-exact host columns of one channel."""
+    """Concatenate the first ``row_counts[i]`` rows of each column of one
+    channel: numpy columns on the host, tensors on their one device.
+    Dictionary columns are re-coded into a fresh shared dictionary (a
+    child column's too); an ARRAY's or MAP's children follow their rows
+    (one read of a device's lengths a part)."""
     typ = cols[0].type
+    first = cols[0].values
+    on_device = isinstance(first, torch.Tensor)
+
+    def ones(k):
+        return (torch.ones(k, dtype=torch.bool, device=first.device)
+                if on_device else np.ones(k, bool))
+
     if any(c.valid is not None for c in cols):
-        valid = np.concatenate([
-            _host(c.valid)[:n] if c.valid is not None
-            else np.ones(n, bool)
-            for c, n in zip(cols, row_counts)])
+        valid = _cat([c.valid[:k] if c.valid is not None else ones(k)
+                      for c, k in zip(cols, row_counts)])
     else:
         valid = None
+    values = _cat([c.values[:k] for c, k in zip(cols, row_counts)])
+    if isinstance(typ, (T.ArrayType, T.MapType)):
+        kid_counts = [int(c.values[:k].sum())
+                      for c, k in zip(cols, row_counts)]
+        kids = tuple(
+            _concat_columns([c.children[ki] for c in cols], kid_counts)
+            for ki in range(len(cols[0].children)))
+        return Column(typ, values, valid, None, kids)
+    if isinstance(typ, T.RowType):
+        kids = tuple(
+            _concat_columns([c.children[ki] for c in cols], row_counts)
+            for ki in range(len(cols[0].children)))
+        return Column(typ, values, valid, None, kids)
     if typ.is_dictionary:
         target = Dictionary()
         parts = []
-        for c, n in zip(cols, row_counts):
+        for c, k in zip(cols, row_counts):
             remap = c.dictionary.remap_into(target)
-            codes = _host(c.values)[:n]
-            parts.append(remap[codes] if len(remap) else codes)
-        values = np.concatenate(parts) if parts else np.zeros(0, np.int32)
-        return Column(typ, values, valid, target)
-    values = np.concatenate(
-        [_host(c.values)[:n] for c, n in zip(cols, row_counts)])
+            codes = c.values[:k]
+            if len(remap) and k:
+                if on_device:
+                    # a NULL row's code may lie outside its dictionary
+                    idx = codes.long().clamp(0, len(remap) - 1)
+                    codes = torch.from_numpy(remap).to(codes.device)[idx]
+                else:
+                    codes = remap[np.clip(codes, 0, len(remap) - 1)]
+            parts.append(codes)
+        return Column(typ, _cat(parts), valid, target)
     return Column(typ, values, valid)
 
 
 def concat_batches(batches: Sequence[Batch]) -> Batch:
-    """Concatenate compacted batches on the host (dictionary columns are
-    re-coded into a shared dictionary — the DictionaryBlock 'compact'
-    analogue)."""
-    batches = [b.compact().to_numpy() for b in batches if b.num_rows > 0]
-    if not batches:
+    """Concatenate batches (dictionary columns are re-coded into a shared
+    dictionary — the DictionaryBlock 'compact' analogue).  Batches whose
+    columns all lie on one device are concatenated there; otherwise on
+    the host."""
+    live = [b for b in batches if b.num_rows > 0]
+    if not live:
         raise ValueError("concat of zero rows needs a schema")
-    first = batches[0]
-    counts = [b.num_rows for b in batches]
+    devices = {b.device for b in live}
+    if len(devices) != 1 or None in devices or any(
+            c.device is None for b in live for c in b.columns):
+        live = [b.to_numpy() for b in live]
+    counts = [b.num_rows for b in live]
     out_cols = [
-        _concat_columns([b.columns[ci] for b in batches], counts)
-        for ci in range(first.num_columns)]
+        _concat_columns([b.columns[ci] for b in live], counts)
+        for ci in range(live[0].num_columns)]
     return Batch(tuple(out_cols), sum(counts))
 
 
 def empty_column(typ: T.Type) -> Column:
-    if typ.is_nested:
-        raise NotImplementedError(
-            f"{typ.display()} columns: ROADMAP A6 ports nested types")
+    """A host column of no rows."""
+    if isinstance(typ, T.ArrayType):
+        return Column(typ, np.zeros(0, np.int32), None, None,
+                      (empty_column(typ.element),))
+    if isinstance(typ, T.MapType):
+        return Column(typ, np.zeros(0, np.int32), None, None,
+                      (empty_column(typ.key), empty_column(typ.value)))
+    if isinstance(typ, T.RowType):
+        return Column(typ, np.zeros(0, np.int8), None, None,
+                      tuple(empty_column(ft) for ft in typ.field_types))
     dictionary = Dictionary() if typ.is_dictionary else None
     return Column(typ, np.zeros(0, typ.np_dtype), None, dictionary)
-

@@ -53,10 +53,13 @@ def _stored(batch: Batch, device: torch.device) -> Batch:
     batch = batch.compact().to_device(device)
     if not padded:
         return batch
-    return Batch(tuple(
-        Column(c.type, c.values.clone(),
-               None if c.valid is None else c.valid.clone(), c.dictionary)
-        for c in batch.columns), batch.num_rows)
+    return Batch(tuple(_cloned(c) for c in batch.columns), batch.num_rows)
+
+
+def _cloned(c: Column) -> Column:
+    return Column(c.type, c.values.clone(),
+                  None if c.valid is None else c.valid.clone(),
+                  c.dictionary, tuple(_cloned(k) for k in c.children))
 
 
 class _MemPageSink(PageSink):

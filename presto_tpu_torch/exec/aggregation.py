@@ -22,14 +22,15 @@ them (``presto_tpu/exec/aggregation.py:253-505``):
 Streaming aggregation over key-clustered scans is exec/streamagg.py.
 
 The sketch aggregates (approx_distinct's HyperLogLog, approx_percentile's
-KLL; ``sketch.py``) and the count/sum/min/max beside them run on the host
-in ``host_aggregate``, as the JAX package runs them: each batch is copied
-to the host once (``b.compact().to_numpy()``, one read of the card a
-batch) and folded in a Python loop over its rows; the result batch goes
-back to the operator's device.  Spilling (ROADMAP A8) and the collect
-aggregates (array_agg, map_agg, min_by/max_by, corr/covar/regr,
-learn_*: their state is an array column, ROADMAP A6) raise
-``NotImplementedError``.
+KLL; ``sketch.py``), the collect aggregates (array_agg, map_agg,
+min_by/max_by, corr/covar/regr: their state is an array column) and the
+count/sum/min/max beside them run on the host in ``host_aggregate``, as
+the JAX package runs them: each batch is copied to the host once
+(``b.compact().to_numpy()``, one read of the card a batch), the rows are
+grouped in first-row order, the sketches fold in a Python loop over the
+rows and a collect gathers each group's rows in arrival order; the
+result batch goes back to the operator's device once.  Spilling
+(ROADMAP A8) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from presto_tpu_torch.exec.operator import (
     Operator, OperatorFactory, device_concat,
 )
 from presto_tpu_torch.expr.xp import torch_dtype
+from presto_tpu_torch.ops.keys import check_flat_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,33 +61,80 @@ class AggChannel:
     out_type: T.Type
 
 
-_HOST_PRIMS = ("hll", "hll_merge", "kll", "kll_merge")
-
-
-def _check_prims(aggs: Sequence[AggChannel]) -> None:
-    for a in aggs:
-        if a.prim in ("collect", "collect_merge"):
-            raise NotImplementedError(
-                f"aggregate primitive {a.prim}: ROADMAP A6 ports the "
-                "collect aggregates (their state is an array column)")
+_HOST_PRIMS = ("collect", "collect_merge", "hll", "hll_merge", "kll",
+               "kll_merge")
 
 
 def _has_host_prims(aggs: Sequence[AggChannel]) -> bool:
-    """True when a sketch aggregate needs the host path."""
+    """True when a sketch or collect aggregate needs the host path."""
     return any(a.prim in _HOST_PRIMS for a in aggs)
+
+
+def _group_ids(data: Batch, group_channels: Sequence[int], n: int):
+    """(group id of each row, each group's first row), the groups in the
+    order of their first row, grouped by their key words (``np.unique``;
+    a NULL is a group, -0.0 equals 0.0)."""
+    for c in group_channels:
+        check_flat_key(data.columns[c].type)
+    cols = [data.columns[c].to_numpy() for c in group_channels]
+    if not cols:
+        return np.zeros(n, np.int64), np.zeros(min(n, 1), np.int64)
+    words = []
+    for c in cols:
+        v = c.values[:n]
+        if c.type.name in ("double", "real"):
+            v = v.astype(np.float64) + 0.0       # -0.0 -> 0.0
+            w = v.view(np.int64)
+        else:
+            w = v.astype(np.int64)
+        if c.valid is not None:
+            ok = c.valid[:n]
+            w = np.where(ok, w, 0)
+            words.append((~ok).astype(np.int64))
+        words.append(w)
+    _, first, inverse = np.unique(np.stack(words, 1), axis=0,
+                                  return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.shape[0])
+    return rank[inverse.reshape(-1)].astype(np.int64), first[order]
+
+
+def _collect(a: AggChannel, col: Column, gids: np.ndarray,
+             ng: int) -> Column:
+    """array_agg's state: each group's values in arrival order (a stable
+    sort of the rows by group).  The FINAL step's ``collect_merge``
+    concatenates the partial step's arrays of a group, skipping NULL
+    ones."""
+    rows = np.argsort(gids, kind="stable")
+    if a.prim == "collect_merge":
+        if col.valid is not None:
+            rows = rows[col.valid[rows]]
+        taken = col.take(rows)
+        lengths = np.bincount(gids[rows], weights=taken.values,
+                              minlength=ng)
+        kid = taken.children[0]
+    else:
+        lengths = np.bincount(gids, minlength=ng)
+        kid = col.take(rows)
+    el = a.out_type.element
+    return Column(a.out_type, lengths.astype(np.int32), None, None,
+                  (Column(el, kid.values, kid.valid, kid.dictionary,
+                          kid.children),))
 
 
 def host_aggregate(batches: List[Batch], group_channels: Sequence[int],
                    aggs: Sequence[AggChannel],
                    global_row: bool) -> Optional[Batch]:
-    """Host-side aggregation used when a sketch aggregate is present
-    (AccumulatorCompiler's object-state accumulators in the reference):
-    device reductions cannot build a HyperLogLog or a KLL sketch.  Groups
-    come out in the order of their first row.  Returns a host batch.
+    """Host-side aggregation used when a sketch or collect aggregate is
+    present (AccumulatorCompiler's object-state accumulators in the
+    reference): device reductions cannot build a HyperLogLog, a KLL
+    sketch or a variable-length array.  Groups come out in the order of
+    their first row.  Returns a host batch.
 
     At the FINAL step the ``*_merge`` prims read the partial step's
-    serialized sketches, never raw values (the prim says which step this
-    is: an input of the sketch's own varbinary type is ambiguous)."""
+    serialized sketches or arrays, never raw values (the prim says which
+    step this is: an input of the state's own type is ambiguous)."""
     from presto_tpu_torch.batch import column_from_pylist, concat_batches
     from presto_tpu_torch.sketch import HyperLogLog, KllSketch
 
@@ -98,37 +147,33 @@ def host_aggregate(batches: List[Batch], group_channels: Sequence[int],
     else:
         data = concat_batches(live) if len(live) > 1 else live[0]
         n = data.num_rows
-    key_lists = [data.columns[c].to_pylist(n) for c in group_channels] \
-        if data is not None else [[] for _ in group_channels]
-    group_ids: dict = {}
-    order: List[tuple] = []
-    gids = np.zeros(n, np.int64)
-    for i in range(n):
-        k = tuple(kl[i] for kl in key_lists)
-        gid = group_ids.get(k)
-        if gid is None:
-            gid = group_ids[k] = len(order)
-            order.append(k)
-        gids[i] = gid
-    if global_row and not order:
-        order.append(())
-    ng = len(order)
-    cols: List[Column] = []
-    for j, c in enumerate(group_channels):
-        src = None if data is None else data.columns[c]
-        vals = [k[j] for k in order]
-        cols.append(column_from_pylist(src.type, vals))
+    if data is None:
+        gids, firsts = np.zeros(0, np.int64), np.zeros(0, np.int64)
+    else:
+        gids, firsts = _group_ids(data, group_channels, n)
+    ng = len(firsts)
+    if global_row and ng == 0:
+        ng = 1
+    cols: List[Column] = [data.columns[c].take(firsts)
+                          for c in group_channels]
     for a in aggs:
+        if a.prim in ("collect", "collect_merge"):
+            if n == 0:
+                # array_agg over no rows is NULL
+                cols.append(column_from_pylist(a.out_type, [None] * ng))
+            else:
+                cols.append(_collect(a, data.columns[a.channel], gids, ng))
+            continue
+        if a.prim == "count":
+            valid = None if a.channel is None or data is None \
+                else data.columns[a.channel].valid
+            counted = gids if valid is None else gids[valid[:n]]
+            cols.append(Column(a.out_type, np.bincount(
+                counted, minlength=ng).astype(a.out_type.np_dtype)))
+            continue
         in_list = None
         if a.channel is not None and data is not None:
             in_list = data.columns[a.channel].to_pylist(n)
-        if a.prim == "count":
-            out = [0] * ng
-            for i in range(n):
-                if in_list is None or in_list[i] is not None:
-                    out[int(gids[i])] += 1
-            cols.append(column_from_pylist(a.out_type, out))
-            continue
         if a.prim in ("hll", "hll_merge", "kll", "kll_merge"):
             sketch = HyperLogLog if a.prim.startswith("hll") else KllSketch
             merge = a.prim.endswith("_merge")
@@ -210,7 +255,6 @@ class HashAggregationOperator(Operator):
     def __init__(self, ctx: OperatorContext, group_channels: Sequence[int],
                  aggs: Sequence[AggChannel], input_types: Sequence[T.Type]):
         super().__init__(ctx)
-        _check_prims(aggs)
         self.group_channels = list(group_channels)
         self.aggs = list(aggs)
         self.input_types = list(input_types)
@@ -453,10 +497,7 @@ class HashAggregationOperator(Operator):
                                                     data.num_rows)
         cols = []
         for c in self.group_channels:
-            src = data.columns[c]
-            cols.append(Column(src.type, src.values[gi],
-                               None if src.valid is None else src.valid[gi],
-                               src.dictionary))
+            cols.append(data.columns[c].take(gi))
         for a, post, (values, cnt) in zip(self.aggs, posts, results):
             if a.prim == "count":
                 cols.append(Column(a.out_type, values.to(torch.int64)))
@@ -536,7 +577,6 @@ class GlobalAggregationOperator(Operator):
     def __init__(self, ctx: OperatorContext, aggs: Sequence[AggChannel],
                  input_types: Sequence[T.Type], device: torch.device):
         super().__init__(ctx)
-        _check_prims(aggs)
         self.aggs = list(aggs)
         self.input_types = list(input_types)
         self.device = device

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.batch import Batch, Column, null_column
+from presto_tpu_torch.batch import Batch, null_column
 from presto_tpu_torch.exec.context import OperatorContext
 from presto_tpu_torch.exec.operator import (
     Operator, OperatorFactory, device_concat,
@@ -416,16 +416,14 @@ class LookupJoinOperator(Operator):
                 return None
             pi, bi, _rv, unmatched, total = J.expand_matches(
                 lo, counts, src.perm, total, total=total)
-        cols = [Column(c.type, c.values[pi],
-                       None if c.valid is None else c.valid[pi],
-                       c.dictionary) for c in batch.columns]
+        cols = [c.take(pi) for c in batch.columns]
         for c in src.data.columns:
-            bvalid = ~unmatched if c.valid is None else (c.valid[bi]
-                                                         & ~unmatched)
-            cols.append(Column(c.type, c.values[bi],
-                               None if join_type == "inner"
-                               and c.valid is None else bvalid,
-                               c.dictionary))
+            taken = c.take(bi)
+            if join_type != "inner":
+                taken = taken.with_values(taken.values, ~unmatched
+                                          if taken.valid is None else
+                                          taken.valid & ~unmatched)
+            cols.append(taken)
         return Batch(tuple(cols), total)
 
     def _probe_filter(self, src: LookupSource,

@@ -16,7 +16,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.batch import Batch, Column, null_column
+from presto_tpu_torch.batch import Batch, null_column
 from presto_tpu_torch.exec.context import OperatorContext
 from presto_tpu_torch.exec.operator import (
     Operator, OperatorFactory, device_concat,
@@ -104,12 +104,8 @@ class NestedLoopJoinOperator(Operator):
             j = torch.arange(npr * k, device=device)
             pi = j // k
             bi = lo + j % k
-            cols = [Column(c.type, c.values[pi],
-                           None if c.valid is None else c.valid[pi],
-                           c.dictionary) for c in batch.columns]
-            cols += [Column(c.type, c.values[bi],
-                            None if c.valid is None else c.valid[bi],
-                            c.dictionary) for c in build.columns]
+            cols = [c.take(pi) for c in batch.columns]
+            cols += [c.take(bi) for c in build.columns]
             self.ctx.stats.output_rows += npr * k
             self._out.append(Batch(tuple(cols), npr * k))
 

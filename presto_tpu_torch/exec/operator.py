@@ -114,9 +114,11 @@ def device_concat(batches: Sequence[Batch], min_capacity: int = 1024,
 
     When every dictionary column shares one dictionary object across the
     batches (connector-interned dictionaries), the concat is one
-    ``torch.cat`` per column on the device.  Otherwise dictionary columns
-    are re-coded into a shared dictionary on the host (cheap: dictionary
-    sizes << row counts) and the result is staged back."""
+    ``torch.cat`` per column on the device.  Otherwise ``concat_batches``
+    concatenates them on their device: dictionary columns re-coded into a
+    shared dictionary (the map built on the host, dictionary sizes << row
+    counts, and gathered on the device), nested columns with their
+    children."""
     live = [b for b in batches if b.num_rows > 0]
     if not live:
         return None
@@ -125,7 +127,7 @@ def device_concat(batches: Sequence[Batch], min_capacity: int = 1024,
         return pad_batch(live[0].compact(), min_capacity, device)
     shared = all(
         c.dictionary is live[0].columns[ci].dictionary
-        and c.device is not None
+        and c.device is not None and not c.children
         for b in live for ci, c in enumerate(b.columns))
     if not shared or device is None:
         merged = concat_batches(live)

@@ -12,13 +12,15 @@ from typing import List, Optional, Sequence
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.connectors.api import Connector, Split
 from presto_tpu_torch.exec.context import OperatorContext
 from presto_tpu_torch.exec.operator import (
     Operator, OperatorFactory, SourceOperator,
 )
-from presto_tpu_torch.expr.compile import ExprCompiler
+from presto_tpu_torch.expr.compile import (
+    ExprCompiler, batch_pairs, result_column,
+)
 from presto_tpu_torch.expr.ir import RowExpression
 from presto_tpu_torch.expr.xp import TorchXp
 
@@ -168,22 +170,17 @@ class FilterProjectOperator(Operator):
         if cfilter is not None:
             from presto_tpu_torch.ops.filter import selected_positions
 
-            cols = [(c.values, c.valid) for c in batch.columns]
-            mask, mvalid = cfilter.run(cols, n, xp)
+            mask, mvalid = cfilter.run(batch_pairs(batch), n, xp)
             mask, mvalid = xp.asarray(mask), (
                 None if mvalid is None else xp.asarray(mvalid))
             batch = batch.take(selected_positions(mask, mvalid, n))
             n = batch.num_rows
-        pairs = [(c.values, c.valid) for c in batch.columns]
+        pairs = batch_pairs(batch)
         out_cols = []
         for p in cprojs:
             values, valid = p.run(pairs, n, xp)
-            if isinstance(values, Column):   # host-built column (strings)
-                col = Column(values.type, values.values, valid,
-                             values.dictionary)
-            else:
-                col = Column(p.type, values, valid, p.dictionary)
-            out_cols.append(col.to_device(device))
+            # a host-built column (strings) goes to the batch's device
+            out_cols.append(result_column(p, values, valid).to_device(device))
         out = Batch(tuple(out_cols), n)
         self.ctx.stats.output_batches += 1
         self.ctx.stats.output_rows += n

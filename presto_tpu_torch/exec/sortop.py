@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.exec.context import OperatorContext
 from presto_tpu_torch.exec.operator import (
     Operator, OperatorFactory, device_concat,
@@ -66,10 +66,7 @@ class OrderByOperator(Operator):
                 keys.append((c.values, c.valid, c.type, s.descending,
                              s.nulls_first))
         perm = sort_permutation(keys, data.num_rows)
-        cols = [Column(c.type, c.values[perm],
-                       None if c.valid is None else c.valid[perm],
-                       c.dictionary)
-                for c in data.columns]
+        cols = [c.take(perm) for c in data.columns]
         return Batch(tuple(cols), data.num_rows)
 
     def finish(self) -> None:

@@ -27,14 +27,17 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.batch import Batch, Column, Dictionary, _host
+from presto_tpu_torch.batch import (
+    Batch, Column, Dictionary, _host, null_column,
+)
 from presto_tpu_torch.expr import functions as F
 from presto_tpu_torch.expr.ir import (
     Call, Constant, InputRef, LambdaExpr, RowExpression, SpecialForm, VarRef,
 )
-from presto_tpu_torch.expr.xp import NUMPY
+from presto_tpu_torch.expr.xp import NUMPY, TorchXp
 
 Pair = Tuple[Any, Optional[Any]]  # (values, valid|None)
 
@@ -108,8 +111,14 @@ class ExprCompiler:
         t = expr.type
         if expr.value is None:
             if t.is_nested:
-                raise NotImplementedError(
-                    f"{t.display()} values: ROADMAP A6 ports nested types")
+                def run(cols, n, xp):
+                    nn = _rowcount(cols, n, xp)
+                    col = null_column(t, nn, _device_of(xp))
+                    if xp is NUMPY:
+                        col = col.to_numpy()
+                    return col.with_values(col.values, None), col.valid
+
+                return CompiledExpr(t, run)
             dt = t.np_dtype
 
             def run(cols, n, xp):
@@ -163,8 +172,20 @@ class ExprCompiler:
 
             return CompiledExpr(T.BOOLEAN, run)
         if fn.null_mode == "hash64":
-            raise NotImplementedError(
-                "hash64: ROADMAP A13 ports the row hashing (ops/hashing.py)")
+            types = [a.type for a in expr.args]
+
+            def run(cols, n, xp):
+                from presto_tpu_torch.ops.hashing import row_hash
+
+                triples = []
+                for c, ty in zip(cargs, types):
+                    v, valid = c.run(cols, n, xp)
+                    triples.append((_tensor(v), None if valid is None
+                                    else _tensor(valid), ty))
+                h = row_hash(triples)
+                return (h if isinstance(xp, TorchXp) else h.numpy()), None
+
+            return CompiledExpr(T.BIGINT, run)
         if fn.kind == "string":
             return self._string_call(expr, fn, cargs)
         impl = fn.impl
@@ -194,25 +215,46 @@ class ExprCompiler:
         return CompiledExpr(fn.result_type, run)
 
     def _nested_call(self, expr: Call, fn: F.Scalar) -> CompiledExpr:
-        """Host-side functions over whole columns (value -> string casts,
-        date_format).  Array/map/row functions and lambdas are ROADMAP
-        A6."""
+        """Functions over whole columns.  The array/map/row functions of
+        ``expr/arrayfns.py`` (``fn.on_device``) run on the batch's
+        device, their nested arguments as Columns of tensors; the value
+        -> string casts, date_format and the casts of nested values run
+        on the host, where strings are built.  Lambdas are ROADMAP A6b."""
         if any(isinstance(a, LambdaExpr) for a in expr.args):
-            raise NotImplementedError(
-                f"lambda in {expr.name}: ROADMAP A6 ports nested types")
+            raise F._not_ported_nested(f"{expr.name} (a lambda)")
         cvals = [self.compile(a) for a in expr.args]
         impl = fn.impl
         rt = fn.result_type
         out_dict = getattr(fn, "out_dictionary", None)
 
-        def as_arg(c: CompiledExpr, v):
+        def as_arg(c: CompiledExpr, v, to):
             if isinstance(v, Column):
                 return v
             if c.const_str is not None:
                 return c.const_str
             if c.type.is_dictionary:
-                return Column(c.type, np.asarray(v), None, c.dictionary)
-            return np.asarray(v)
+                return Column(c.type, to(v), None, c.dictionary)
+            return to(v)
+
+        if getattr(fn, "on_device", False):
+            def run(cols, n, xp):
+                host = xp is NUMPY
+                txp = TorchXp("cpu") if host else xp
+                if host:       # constant folding: torch on the host
+                    cols = [(_tensor_value(v), None if valid is None
+                             else _tensor(valid)) for v, valid in cols]
+                args, valids = [], []
+                for c in cvals:
+                    v, valid = c.run(cols, n, txp)
+                    args.append(as_arg(c, v, txp.asarray))
+                    valids.append(valid)
+                out, valid = impl(args, valids, n, txp)
+                if host:
+                    out = _host_value(out)
+                    valid = None if valid is None else _host(valid)
+                return out, valid
+
+            return CompiledExpr(rt, run, dictionary=out_dict)
 
         def run(cols, n, xp):
             # host-side by design (strings are built on the host)
@@ -221,7 +263,7 @@ class ExprCompiler:
             args, valids = [], []
             for c in cvals:
                 v, valid = c.run(host_cols, n, NUMPY)
-                args.append(as_arg(c, v))
+                args.append(as_arg(c, v, np.asarray))
                 valids.append(valid)
             return impl(args, valids, n, NUMPY)
 
@@ -501,6 +543,24 @@ def _rowcount(cols, n, xp):
     return n
 
 
+def _device_of(xp) -> torch.device:
+    return xp.device if isinstance(xp, TorchXp) else torch.device("cpu")
+
+
+def _tensor_value(v):
+    """A values array or a Column as tensors (host arrays wrapped)."""
+    if isinstance(v, Column):
+        return v.to_device("cpu")
+    return _tensor(v)
+
+
+def _tensor(v) -> torch.Tensor:
+    """A values array as a tensor (numpy arrays wrapped on the host)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
 def _host_value(v):
     if isinstance(v, Column):
         return v.to_numpy()
@@ -554,13 +614,16 @@ def needs_host_path(exprs: Sequence[RowExpression]) -> bool:
 
 
 def batch_pairs(batch: Batch) -> List[Pair]:
-    """Input-channel (values, valid) pairs for compiled expressions."""
-    return [(c.values, c.valid) for c in batch.columns]
+    """Input-channel (values, valid) pairs for compiled expressions (a
+    nested channel's values as its Column, validity apart)."""
+    return [(c.with_values(c.values, None) if c.type.is_nested
+             else c.values, c.valid) for c in batch.columns]
 
 
 def result_column(compiled: CompiledExpr, values, valid) -> Column:
     if isinstance(values, Column):
-        return Column(values.type, values.values, valid, values.dictionary)
+        return Column(values.type, values.values, valid, values.dictionary,
+                      values.children)
     return Column(compiled.type, values, valid, compiled.dictionary)
 
 

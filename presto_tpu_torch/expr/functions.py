@@ -30,6 +30,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from presto_tpu_torch import types as T
 from presto_tpu_torch.expr import datemath
+from presto_tpu_torch.ops.keys import check_flat_key
 
 # ---------------------------------------------------------------------------
 # Scalar descriptor
@@ -83,15 +84,20 @@ class FunctionError(ValueError):
     pass
 
 
+def _abs(xp, v):
+    """|v| of an array or of a Python int divisor (a constant factor)."""
+    return abs(v) if isinstance(v, int) else xp.abs(v)
+
+
 def _trunc_div(xp, a, b):
     """SQL integer division truncates toward zero (5/2=2, -5/2=-2)."""
-    q = xp.floor_divide(xp.abs(a), xp.abs(b))
+    q = xp.floor_divide(xp.abs(a), _abs(xp, b))
     return xp.where((a < 0) ^ (b < 0), -q, q)
 
 
 def _round_half_up_div(xp, a, b):
     """round-half-away-from-zero of a/b in exact integer arithmetic."""
-    q = xp.floor_divide(2 * xp.abs(a) + xp.abs(b), 2 * xp.abs(b))
+    q = xp.floor_divide(2 * xp.abs(a) + _abs(xp, b), 2 * _abs(xp, b))
     return xp.where((a < 0) ^ (b < 0), -q, q)
 
 
@@ -1123,11 +1129,97 @@ def _nested(name, args, rt, impl, **extra) -> Scalar:
     return s
 
 
+def _device_nested(name, args, rt, impl) -> Scalar:
+    """An array/map/row function of ``expr/arrayfns.py``: it runs on the
+    batch's device (compile.py ``_nested_call``)."""
+    return _nested(name, args, rt, impl, on_device=True)
+
+
+def _not_ported_nested(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"array/map function {name}: ROADMAP A6b ports the rest of the "
+        "array and map functions and the lambdas")
+
+
 def _resolve_nested(name: str, args: Tuple[T.Type, ...]) -> Optional[Scalar]:
-    """Array/map/row function resolution (ArrayFunctions / MapFunctions /
-    lambda functions): not in this package yet."""
-    raise NotImplementedError(
-        f"array/map/row function {name}: ROADMAP A6 ports nested types")
+    """Array/map/row function resolution (ArrayFunctions / MapFunctions,
+    presto-main/.../operator/scalar/).  The functions of this slice
+    resolve to ``expr/arrayfns.py``; the rest of the reference's library
+    and the lambda functions raise ``NotImplementedError`` naming A6b
+    where the reference would resolve them.  Lambda argument positions
+    carry the lambda BODY's result type in ``args``."""
+    from presto_tpu_torch.expr import arrayfns as A
+
+    a0 = args[0] if args else None
+    arr0 = a0 if isinstance(a0, T.ArrayType) else None
+    map0 = a0 if isinstance(a0, T.MapType) else None
+
+    if name == "hash64":
+        for t_ in args:
+            check_flat_key(t_)
+    if name == "cardinality" and (arr0 or map0):
+        return _device_nested(name, args, T.BIGINT, A.cardinality)
+    if name in ("element_at", "subscript"):
+        if arr0:
+            return _device_nested(name, args, arr0.element,
+                                  A.array_subscript)
+        if map0:
+            return _device_nested(name, args, map0.value, A.map_subscript)
+    if name == "contains" and arr0:
+        return _device_nested(name, args, T.BOOLEAN, A.contains)
+    if name == "array_position" and arr0:
+        return _device_nested(name, args, T.BIGINT, A.array_position)
+    if name == "array_min" and arr0:
+        return _device_nested(name, args, arr0.element, A.array_min)
+    if name == "array_max" and arr0:
+        return _device_nested(name, args, arr0.element, A.array_max)
+    if name == "split" and args and T.is_string(args[0]):
+        rt = T.ArrayType("array", element=T.VARCHAR)
+        return _device_nested(name, args, rt, A.split_fn(rt))
+    if name == "map" and len(args) == 2 and arr0 \
+            and isinstance(args[1], T.ArrayType):
+        rt = T.MapType("map", key=arr0.element, value=args[1].element)
+        return _device_nested(name, args, rt, A.map_from_arrays(rt))
+    if name == "$rows_map_agg" and arr0:
+        k, v = arr0.element.field_types
+        rt = T.MapType("map", key=k, value=v)
+        return _device_nested(name, args, rt, A.rows_map(rt))
+    if name in ("$rows_min_by", "$rows_max_by") and arr0:
+        x, _y = arr0.element.field_types
+        mode = name[len("$rows_"):]     # min_by | max_by
+        return _device_nested(name, args, x, A.rows_extreme_by(mode))
+    if name in ("$rows_corr", "$rows_covar_samp", "$rows_covar_pop",
+                "$rows_regr_slope", "$rows_regr_intercept") and arr0:
+        stat = name[len("$rows_"):]
+        return _device_nested(name, args, T.DOUBLE, A.rows_statistic(stat))
+    if name in ("$rows_learn_classifier", "$rows_learn_regressor") \
+            and arr0:
+        raise NotImplementedError(
+            f"{name[len('$rows_'):]}: ROADMAP A10 ports the ml functions")
+    # the reference's other array/map functions and the lambda functions
+    # (its _resolve_nested conditions): ROADMAP A6b
+    if (name in ("array_distinct", "reverse", "array_join", "slice",
+                 "array_remove", "array_intersect", "array_union",
+                 "array_except", "arrays_overlap", "zip_with",
+                 "array_average", "transform", "filter", "any_match",
+                 "all_match", "none_match") and arr0) \
+            or (name == "array_sort" and arr0 and len(args) == 1) \
+            or (name in ("concat", "array_concat") and arr0) \
+            or (name == "flatten" and arr0
+                and isinstance(arr0.element, T.ArrayType)) \
+            or (name == "repeat" and len(args) == 2) \
+            or (name == "sequence" and args and T.is_integral(args[0])) \
+            or (name == "zip" and arr0 and all(
+                isinstance(t_, T.ArrayType) for t_ in args)) \
+            or (name == "map_from_entries" and arr0
+                and isinstance(arr0.element, T.RowType)
+                and len(arr0.element.field_types) == 2) \
+            or (name == "reduce" and arr0 and len(args) == 4) \
+            or (name in ("map_keys", "map_values", "map_entries",
+                         "map_concat", "map_filter", "transform_values",
+                         "transform_keys") and map0):
+        raise _not_ported_nested(name)
+    return None
 
 
 _MYSQL_TO_STRFTIME = {
@@ -1250,8 +1342,7 @@ def resolve_format_datetime(src: T.Type, fmt: str) -> Scalar:
 
 
 def resolve_array_percentile(arr: T.ArrayType, p: float) -> Scalar:
-    raise NotImplementedError(
-        "array_percentile: ROADMAP A6 ports nested types")
+    raise _not_ported_nested("array_percentile")
 
 
 def resolve_kll_percentile(result_type: T.Type, p: float) -> Scalar:
@@ -1278,24 +1369,43 @@ def resolve_kll_percentile(result_type: T.Type, p: float) -> Scalar:
 
 
 def resolve_array_constructor(rt: T.ArrayType, k: int) -> Scalar:
-    raise NotImplementedError(
-        "array_constructor: ROADMAP A6 ports nested types")
+    from presto_tpu_torch.expr import arrayfns as A
+
+    s = _device_nested("$array", (rt.element,) * k, rt,
+                       A.array_constructor(rt, k))
+    s.re_key = ("array_ctor", rt, k)
+    return s
 
 
 def resolve_row_field(row: T.RowType, field: str) -> Tuple[Scalar, int]:
     """ROW field dereference (``r.name``): returns (scalar, field index)."""
-    raise NotImplementedError(
-        f"row field {field!r}: ROADMAP A6 ports nested types")
+    names = [n.lower() for n in row.field_names]
+    if field.lower() not in names:
+        raise FunctionError(f"row has no field {field!r}: {row.display()}")
+    i = names.index(field.lower())
+    return resolve_row_field_index(row, i), i
 
 
 def resolve_row_field_index(row: T.RowType, i: int) -> Scalar:
-    raise NotImplementedError(
-        "row_field_index: ROADMAP A6 ports nested types")
+    from presto_tpu_torch.expr import arrayfns as A
+
+    s = _device_nested("row_field", (row,), row.field_types[i],
+                       A.row_field(i))
+    s.re_key = ("row_field", row, i)
+    return s
 
 
 def resolve_row_constructor(field_types: Sequence[T.Type]) -> Scalar:
-    raise NotImplementedError(
-        "row_constructor: ROADMAP A6 ports nested types")
+    from presto_tpu_torch.expr import arrayfns as A
+
+    rt = T.RowType("row",
+                   field_names=tuple(f"field{i}"
+                                     for i in range(len(field_types))),
+                   field_types=tuple(field_types))
+    s = _device_nested("row", tuple(field_types), rt,
+                       A.row_constructor(rt))
+    s.re_key = ("row", tuple(field_types))
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -1354,20 +1464,21 @@ def resolve_scalar(name: str, arg_types: Sequence[T.Type]) -> Scalar:
             nf = xp.astype(n, "int64")
             frac = (xf - lof) / xp.where(hif != lof, hif - lof, 1.0)
             b = xp.astype(xp.floor(frac * xp.astype(nf, "float64")), "int64") + 1
-            return xp.clip(b, 0, nf + 1)
+            return xp.minimum(xp.maximum(b, 0), nf + 1)
 
         return Scalar(name, args, T.BIGINT, "array", _wb)
     if name == "bit_count" and len(args) == 2:
         def _bc(xp, x, bits):
-            v = xp.astype(x, "uint64")
-            mask = xp.where(
-                xp.astype(bits, "int64") >= 64, xp.uint64(0xFFFFFFFFFFFFFFFF),
-                (xp.uint64(1) << xp.astype(bits, "uint64")) - xp.uint64(1))
-            v = v & mask
+            # int64 with logical shifts (no uint64 tensors): the low
+            # ``bits`` bits of x's two's-complement word, counted
+            v = xp.astype(x, "int64")
+            nb = xp.astype(bits, "int64")
+            keep = xp.where(nb >= 64, -1, (1 << xp.minimum(nb, 63)) - 1)
+            v = v & keep
             count = xp.zeros_like(v)
             for shift in range(64):
-                count = count + ((v >> xp.uint64(shift)) & xp.uint64(1))
-            return xp.astype(count, "int64")
+                count = count + ((v >> shift) & 1)
+            return count
 
         return Scalar(name, args, T.BIGINT, "array", _bc)
     if name == "normalize" and args and T.is_string(args[0]):
@@ -1512,6 +1623,8 @@ def resolve_aggregate(name: str, arg_type: Optional[T.Type]) -> AggSpec:
         if _is_float(arg_type):
             return AggSpec("sum", arg_type, T.DOUBLE, [("sum", T.DOUBLE)])
         raise FunctionError(f"sum({arg_type.display()})")
+    if name in ("min", "max", "any_value", "arbitrary", "approx_percentile"):
+        check_flat_key(arg_type)
     if name in ("min", "max"):
         return AggSpec(name, arg_type, arg_type, [(name, arg_type)])
     if name == "avg":

@@ -19,7 +19,9 @@ CREATE [OR REPLACE] VIEW, DROP VIEW and SHOW CREATE VIEW; PREPARE,
 EXECUTE, DEALLOCATE and DESCRIBE INPUT/OUTPUT; SHOW CATALOGS, SCHEMAS,
 FUNCTIONS, TABLES, COLUMNS/DESCRIBE and CREATE TABLE; SET/RESET/SHOW
 SESSION; USE; START TRANSACTION, COMMIT and ROLLBACK; GRANT and REVOKE;
-and CALL system.runtime.kill_query.  EXPLAIN (TYPE DISTRIBUTED), which
+and CALL system.runtime.kill_query.  ARRAY, MAP and ROW result columns
+come back as Python lists, dicts and tuples, as presto_tpu's do.
+EXPLAIN (TYPE DISTRIBUTED), which
 prints the distributed tier's fragments, raises ``NotImplementedError``
 naming ROADMAP A13.
 """

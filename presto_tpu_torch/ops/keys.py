@@ -12,7 +12,10 @@ reduce to integer sort/compare problems:
   (sign-magnitude to two's-complement flip).  The card has native f64, so
   this is the cpu/gpu branch of the JAX package's ``to_sortable_i64``,
   never its TPU f32 bitcast,
-- dictionary codes -> the code (equality-correct within one dictionary).
+- dictionary codes -> the code (equality-correct within one dictionary),
+- ARRAY/MAP/ROW -> refused (``check_flat_key``): their ``values`` are
+  lengths or placeholders, so a word built from them would merge rows
+  that differ.
 
 Null handling is the SQL rule, split by use:
 - GROUP BY: nulls form a group (the null flag becomes an extra key word),
@@ -31,8 +34,18 @@ from presto_tpu_torch import types as T
 _NOT_SIGN = 0x7FFFFFFFFFFFFFFF
 
 
+def check_flat_key(typ: T.Type) -> None:
+    """Raise for an ARRAY, MAP or ROW value used as a key."""
+    if typ.is_nested:
+        raise NotImplementedError(
+            f"comparing or hashing {typ.display()} values (a GROUP BY, "
+            "DISTINCT, ORDER BY, PARTITION BY or join key, min/max/"
+            "arbitrary/approx_percentile, checksum) is ROADMAP A6b")
+
+
 def to_sortable_i64(values: torch.Tensor, typ: T.Type) -> torch.Tensor:
     """Map a value tensor to int64 preserving the type's sort order."""
+    check_flat_key(typ)
     if typ.name in ("double", "real"):
         bits = values.to(torch.float64).contiguous().view(torch.int64)
         # signed-comparison order fix: negative floats have reversed bit

@@ -16,12 +16,12 @@ and their negations, with a residual for a correlated EXISTS), the cross
 join and EnforceSingleRow (scalar subqueries), UNION ALL, ORDER BY, TopN,
 LIMIT, window functions (with the TopNRowNumber fusion of a
 ``row_number() <= N`` filter), the streaming aggregation of key-clustered
-scans and the output, or in its place the table writer of an INSERT or
-CTAS (``plan_fragment``); the runner adds the local exchange.  The planner
-composes RIGHT and FULL joins and INTERSECT/EXCEPT from these.  Every
-other node raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.  There is no pipeline-fusion post-pass: the chains run
-unfused.
+scans, UNNEST and the output, or in its place the table writer of an
+INSERT or CTAS (``plan_fragment``); the runner adds the local exchange.
+The planner composes RIGHT and FULL joins and INTERSECT/EXCEPT from
+these.  Every other node raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.  There is no pipeline-fusion post-pass: the
+chains run unfused.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ from presto_tpu_torch.exec.streamagg import (
 from presto_tpu_torch.exec.unionop import (
     UnionBuffer, UnionSinkOperatorFactory, UnionSourceOperatorFactory,
 )
+from presto_tpu_torch.exec.unnestop import UnnestOperatorFactory
 from presto_tpu_torch.exec.windowop import (
     TopNRowNumberOperatorFactory, WindowOperatorFactory,
 )
@@ -71,7 +72,6 @@ from presto_tpu_torch.sql.plan import (
 # plan nodes this package does not lower yet -> the ROADMAP item porting
 # them
 _NOT_PORTED = (
-    (UnnestNode, "A6 (unnest)"),
     (TableWriterNode, "A13 (distributed writes)"),
     (TableFinishNode, "A13 (distributed writes)"),
 )
@@ -178,6 +178,12 @@ class PhysicalPlanner:
             chain, splits = self._lower(node.source)
             chain.append(WindowOperatorFactory(
                 node.partition_channels, node.order_keys, node.functions))
+            return chain, splits
+        if isinstance(node, UnnestNode):
+            chain, splits = self._lower(node.source)
+            chain.append(UnnestOperatorFactory(
+                node.replicate_channels, node.unnest_channels,
+                node.ordinality, node.outer))
             return chain, splits
         if isinstance(node, UnionNode):
             buffer = UnionBuffer(len(node.inputs))
@@ -579,7 +585,7 @@ def decompose_aggregates(aggregates: Sequence[PlanAggregate],
 
 
 # merge primitive for each partial component primitive (the collect merge
-# is ROADMAP A6 and raises at the operator)
+# flattens the partial step's arrays, exec/aggregation.py host_aggregate)
 _FINAL_PRIM = {"count": "sum", "sum": "sum", "sumsq": "sum", "min": "min",
                "max": "max", "sumln": "sum", "sumhash": "sum",
                "collect": "collect_merge", "hll": "hll_merge",
@@ -618,7 +624,7 @@ def _finalize(agg: PlanAggregate, comps: List[RowExpression]
                           B.cast(c, T.DOUBLE))
         return B.call("divide", s, c)
     if fin == "map_agg":
-        return B.call("map_from_entries", comps[0])
+        return B.call("$rows_map_agg", comps[0])
     if fin in ("min_by", "max_by"):
         return B.call(f"$rows_{fin}", comps[0])
     if fin == "approx_distinct":

@@ -217,6 +217,17 @@ class UnnestNode(PlanNode):
         return (self.source,)
 
 
+def unnest_output_types(col_type: T.Type) -> List[T.Type]:
+    """UnnestNode's output column types for one unnested channel."""
+    if isinstance(col_type, T.MapType):
+        return [col_type.key, col_type.value]
+    if isinstance(col_type, T.ArrayType):
+        if isinstance(col_type.element, T.RowType):
+            return list(col_type.element.field_types)
+        return [col_type.element]
+    raise ValueError(f"cannot unnest {col_type.display()}")
+
+
 @D(frozen=True)
 class UnionNode(PlanNode):
     """UNION ALL of same-width inputs (UnionNode.java analogue); DISTINCT

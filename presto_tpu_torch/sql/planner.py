@@ -29,7 +29,8 @@ from presto_tpu_torch.sql import tree as t
 from presto_tpu_torch.sql.plan import (
     AggregationNode, EnforceSingleRowNode, FilterNode, JoinNode, LimitNode,
     OutputNode, PlanAggregate, PlanNode, PlanWindowFunction, ProjectNode,
-    SemiJoinNode, SortNode, TableScanNode, UnionNode, ValuesNode, WindowNode,
+    SemiJoinNode, SortNode, TableScanNode, UnionNode, UnnestNode, ValuesNode,
+    WindowNode, unnest_output_types,
 )
 
 AGG_NAMES = {"count", "sum", "avg", "min", "max", "stddev", "stddev_samp",
@@ -1179,10 +1180,49 @@ class Planner:
     def _plan_unnest(self, u: t.Unnest, left: Optional[RelationPlan],
                      outer: Optional[Scope],
                      preserve_outer: bool = False) -> RelationPlan:
-        """UNNEST as a relation (standalone or CROSS JOIN UNNEST(...)):
-        not in this package yet."""
-        raise NotImplementedError(
-            "UNNEST is not in presto_tpu_torch yet: ROADMAP A6 (unnest)")
+        """UNNEST as a relation (standalone or CROSS JOIN UNNEST(...))."""
+        if left is None:
+            dummy_cols = (("$unnest_row", T.BIGINT),)
+            base = RelationPlan(ValuesNode(dummy_cols, ((0,),)),
+                                Scope([Field("$unnest_row", None, T.BIGINT)],
+                                      outer))
+        else:
+            base = left
+        tr = Translator(base.scope)
+        args = [tr.translate(a) for a in u.args]
+        for a in args:
+            if not isinstance(a.type, (T.ArrayType, T.MapType)):
+                raise SqlAnalysisError(
+                    f"cannot unnest {a.type.display()}")
+        nbase = len(base.node.columns)
+        proj_exprs = tuple(
+            [B.ref(i, ty) for i, (_, ty) in enumerate(base.node.columns)]
+            + args)
+        proj_cols = tuple(base.node.columns) + tuple(
+            (f"$unnest{j}", a.type) for j, a in enumerate(args))
+        proj = ProjectNode(base.node, proj_exprs, proj_cols)
+
+        replicate = tuple(range(nbase)) if left is not None else ()
+        unnest_channels = tuple(nbase + j for j in range(len(args)))
+        out_cols: List[Tuple[str, T.Type]] = \
+            [base.node.columns[i] for i in replicate]
+        new_fields: List[Field] = [base.scope.fields[i] for i in replicate]
+        produced = []
+        for a in args:
+            produced.extend(unnest_output_types(a.type))
+        names = list(u.column_aliases)
+        for k, ty in enumerate(produced):
+            name = names[k] if k < len(names) else f"col{k}"
+            out_cols.append((name, ty))
+            new_fields.append(Field(name, u.alias, ty))
+        if u.ordinality:
+            k = len(produced)
+            name = names[k] if k < len(names) else "ordinality"
+            out_cols.append((name, T.BIGINT))
+            new_fields.append(Field(name, u.alias, T.BIGINT))
+        node = UnnestNode(proj, replicate, unnest_channels, u.ordinality,
+                          tuple(out_cols), outer=preserve_outer)
+        return RelationPlan(node, Scope(new_fields, outer))
 
     def _plan_table(self, r: t.Table,
                     outer: Optional[Scope]) -> RelationPlan:

@@ -3,8 +3,10 @@ their plain PyTorch versions, the repeat-run bit identity of the float
 group sums on every tier, SQL on cuda against the same SQL on the CPU,
 the memory catalog's tables on the card (no copy to scan them, one read
 of the card a stored batch to DELETE, no column to the host to ANALYZE),
-the system catalogs' batches on the card, a prepared Q3 and the sketch
-aggregates against the CPU.  Every test here needs the card and skips
+the system catalogs' batches on the card, a prepared Q3, the sketch
+aggregates, and the nested types (the array/map/row functions, UNNEST,
+the collect aggregates; their columns' tensors on the card; one read of
+the card an UNNEST batch) and checksum against the CPU.  Every test here needs the card and skips
 without one.
 
 This file imports neither jax nor presto_tpu, so it also runs where jax
@@ -755,3 +757,135 @@ def test_sketches_on_cuda_match_cpu_bits(card):
         got = runner.execute(sql).rows
         assert got == runner.execute(sql).rows
         assert sorted(got) == sorted(cpu.execute(sql).rows)
+
+
+# -- nested types, UNNEST, the collect aggregates, checksum -----------------
+
+NESTED_CUDA_SQL = [
+    "select array[1,2,3][2], cardinality(array['a','b']), "
+    "element_at(array[1,2], -1), element_at(array[1,2], 5)",
+    "select n_name, contains(array['ALGERIA', 'KENYA'], n_name), "
+    "array_position(array[n_regionkey, n_nationkey], n_nationkey), "
+    "array_min(array[n_nationkey, n_regionkey]), array_max(array[n_name, "
+    "'M']), map(array['k', 'r'], array[n_nationkey, n_regionkey])['r'], "
+    "row(n_nationkey, n_name) from nation order by n_nationkey",
+    "select o_orderkey, split(o_comment, ' '), cardinality(split("
+    "o_comment, ' ')) from orders order by o_orderkey limit 50",
+    "select date_diff('day', o_orderdate, date '1998-08-02'), "
+    "round(cast(o_totalprice as decimal(12,2)), 1), "
+    "width_bucket(o_totalprice, 0.0, 500000.0, 10), "
+    "bit_count(o_orderkey, 64) from orders order by o_orderkey limit 50",
+    C.NESTED_QUERIES["nested_unnest"],
+    C.NESTED_QUERIES["nested_words"],
+    C.NESTED_QUERIES["nested_cardinality"],
+    C.NESTED_QUERIES["checksum"],
+    C.CHECKSUM_TYPES,
+] + list(C.NESTED_SMALL)
+
+
+@pytest.mark.parametrize("sql", NESTED_CUDA_SQL,
+                         ids=[s[:50] for s in NESTED_CUDA_SQL])
+def test_nested_sql_on_cuda_matches_cpu(card, sql):
+    """The array/map/row functions, UNNEST, the C9-C11 repairs and
+    checksum on cuda give the CPU runner's rows."""
+    got = LocalQueryRunner.tpch(scale=0.01, device=card).execute(sql).rows
+    want = LocalQueryRunner.tpch(scale=0.01, device="cpu").execute(sql).rows
+    _same_rows(got, want)
+
+
+def test_collect_aggregates_on_cuda_match_cpu(card):
+    """array_agg/map_agg as multisets (four feed threads), min_by/max_by
+    and the statistics to 1e-9: the CPU runner's answers."""
+    from presto_tpu_torch.config import EngineConfig
+
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card)
+    cpu = LocalQueryRunner.tpch(scale=0.01, device="cpu")
+    sql = C.NESTED_QUERIES["nested_collect"]
+    got = [(p, sorted(a), m) for p, a, m in runner.execute(sql).rows]
+    assert got == [(p, sorted(a), m) for p, a, m in cpu.execute(sql).rows]
+    assert got
+    serial = EngineConfig(task_concurrency=1)
+    sql = C.NESTED_QUERIES["nested_stats"]
+    _same_rows(LocalQueryRunner.tpch(scale=0.01, device=card,
+                                     config=serial).execute(sql).rows,
+               LocalQueryRunner.tpch(scale=0.01, device="cpu",
+                                     config=serial).execute(sql).rows)
+
+
+def test_nested_columns_stay_on_the_card(card):
+    """A nested column's lengths and children are tensors on the card
+    through take, concat and a CTAS into the memory catalog."""
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.batch import batch_from_pylist, concat_batches
+
+    types = [T.parse_type(t) for t in (
+        "array(bigint)", "map(varchar, bigint)", "row(a bigint, b varchar)",
+        "array(array(varchar))")]
+    rows = [([1, 2], {"x": 1}, (1, "p"), [["a"], []]),
+            (None, None, None, None), ([], {}, (2, None), [[None]])]
+    b = batch_from_pylist(types, rows, card)
+
+    def on_card(col):
+        assert col.values.is_cuda
+        assert col.valid is None or col.valid.is_cuda
+        for k in col.children:
+            on_card(k)
+
+    for out in (b, b.take(torch.tensor([2, 0], device=card)),
+                concat_batches([b, b])):
+        for c in out.columns:
+            on_card(c)
+    assert concat_batches([b, b]).to_pylist() == rows + rows
+    runner = LocalQueryRunner.tpch(scale=0.01, device=card)
+    runner.execute("create table memory.nested_t as select n_nationkey, "
+                   "array[n_nationkey, n_regionkey] a, split(n_comment, ' ')"
+                   " w from nation")
+    for sb in _stored(runner, "nested_t"):
+        for c in sb.columns:
+            on_card(c)
+    assert runner.execute("select sum(cardinality(a)) from memory.nested_t"
+                          ).rows == [(50,)]
+
+
+def test_unnest_batch_reads_the_card_once(card):
+    """An UNNEST batch blocks on the card once: the output size.  CUDA's
+    sync debug mode warns at every synchronizing call."""
+    import warnings
+
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.batch import Batch, Column
+    from presto_tpu_torch.config import EngineConfig
+    from presto_tpu_torch.exec.context import (
+        OperatorContext, QueryContext, TaskContext,
+    )
+    from presto_tpu_torch.exec.unnestop import UnnestOperatorFactory
+
+    n = 30000
+    g = torch.Generator().manual_seed(3)
+    lengths = torch.randint(0, 5, (n,), generator=g).to(torch.int32)
+    kid = Column(T.BIGINT, torch.arange(int(lengths.sum())).to(card))
+    arr = Column(T.parse_type("array(bigint)"), lengths.to(card),
+                 (torch.rand(n, generator=g) > 0.1).to(card), None, (kid,))
+    keys = Column(T.BIGINT, torch.arange(n).to(card))
+    batch = Batch((keys, arr), n)
+    for outer in (False, True):
+        op = UnnestOperatorFactory([0], [1], True, outer).create(
+            OperatorContext(TaskContext(QueryContext(EngineConfig())),
+                            "unnest"))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                op.add_input(batch)
+                out = op.get_output()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in seen if "synchroniz" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+        assert all(c.values.is_cuda for c in out.columns)
+        cpu = UnnestOperatorFactory([0], [1], True, outer).create(
+            OperatorContext(TaskContext(QueryContext(EngineConfig())),
+                            "unnest"))
+        cpu.add_input(batch.to_device("cpu"))
+        assert out.to_pylist() == cpu.get_output().to_pylist()

@@ -385,10 +385,12 @@ def test_batch_from_arrays_carries_jax_batches():
 
 
 @pytest.mark.parametrize("sql", [
-    "select x from nation cross join unnest(array[n_nationkey]) as t(x)",
-    # the distributed tier's fragments (A13), a collect aggregate (A6)
+    # UNNEST of an array function and a lambda left for A6b
+    "select x from nation cross join unnest(sequence(1, n_nationkey)) "
+    "as t(x)",
+    # the distributed tier's fragments (A13)
     "explain (type distributed) select 1",
-    "select array_agg(n_name) from nation",
+    "select transform(array[n_nationkey], x -> x + 1) from nation",
     # a spatial predicate over a cross join (the spatial join is A10)
     "select count(*) from nation, region where "
     "st_contains(st_point(n_nationkey, 1), st_point(r_regionkey, 1))",

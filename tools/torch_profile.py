@@ -5,11 +5,16 @@
     python3 tools/torch_profile.py --scale 1 --query q18 --query orderkey \
         --ab streaming_aggregation_enabled --rounds 2
     python3 tools/torch_profile.py --scale 1 --query q1 --query q3 --memory
+    python3 tools/torch_profile.py --scale 1 --query nested_unnest \
+        --query nested_stats --query checksum
 
 ``--memory`` first copies the TPC-H tables each query scans into the
 memory catalog on the card (``create table memory.<t> as select * from
 tpch.<t>``, one ``ctas`` line each with its wall) and profiles the query
 over them, so the generator is out of the wall.
+
+The ``nested_*`` and ``checksum`` labels are phase 9's paths
+(``chip_smoke.NESTED_QUERIES``).
 
 ``--query ds:<file>`` runs a TPC-DS suite file (``tests/tpcds_suite/
 <file>.sql``, as phase 6 of chip_smoke.py runs it) from the tpcds catalog
@@ -52,8 +57,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from chip_smoke import (  # noqa: E402
-    PARTKEY, Q1, Q3, Q6, SKETCH_GLOBAL, SKETCH_GROUPED, SQL_QUERIES,
-    card_line, ds_sql, rows_match,
+    NESTED_QUERIES, PARTKEY, Q1, Q3, Q6, SKETCH_GLOBAL, SKETCH_GROUPED,
+    SQL_QUERIES, card_line, ds_sql, rows_match,
 )
 
 # a GROUP BY on lineitem's sort key that the planner can stream
@@ -63,7 +68,7 @@ group by l_orderkey order by 3 desc, 1 limit 10"""
 
 QUERIES = {"q1": Q1, "q6": Q6, "q3": Q3, "partkey": PARTKEY,
            "orderkey": ORDERKEY, "sketch_grouped": SKETCH_GROUPED,
-           "sketch_global": SKETCH_GLOBAL, **SQL_QUERIES}
+           "sketch_global": SKETCH_GLOBAL, **SQL_QUERIES, **NESTED_QUERIES}
 
 
 def _busy_seconds(events) -> float:
